@@ -1,0 +1,88 @@
+"""Partitioning layer of the ScaNN-style index: k-means + SOAR spilling
+(port of ``repro/ann/partition.py``).
+
+Assignment uses the anisotropic (score-aware) cost of Guo et al. 2020,
+
+    cost(x, c) = ||x - c||^2 + (eta - 1) * ((x - c) . x_hat)^2,
+
+and SOAR (Sun et al. 2024) adds a secondary partition whose residual is
+as orthogonal as possible to the primary one:
+
+    soar_cost(x, c_j) = ||r_j||^2 + lam * ((r_j . r1_hat))^2.
+
+The k-means init draws from a ``torch.Generator`` seeded with ``seed``, so
+its centroids differ from the reference's; they are judged by recall.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _pairwise_sq_dist(x, c):
+    # [N, C] squared distances via the expanded form
+    return ((x * x).sum(-1)[:, None] - 2.0 * x @ c.T
+            + (c * c).sum(-1)[None, :])
+
+
+def anisotropic_cost(x, c, eta: float):
+    """[N, C] score-aware assignment cost."""
+    d2 = _pairwise_sq_dist(x, c)
+    if eta == 1.0:
+        return d2
+    xn = x / (torch.linalg.norm(x, dim=-1, keepdim=True) + 1e-9)
+    # ((x - c) . x_hat) = ||x|| - c . x_hat
+    par = torch.linalg.norm(x, dim=-1)[:, None] - xn @ c.T
+    return d2 + (eta - 1.0) * par * par
+
+
+def _lloyd_step(x, centroids, eta: float):
+    assign = anisotropic_cost(x, centroids, eta).argmin(-1)
+    sums = torch.zeros_like(centroids).index_add_(0, assign, x)
+    counts = torch.bincount(assign, minlength=centroids.shape[0])[:, None]
+    new_c = torch.where(counts > 0, sums / counts.clamp(min=1).to(x.dtype),
+                        centroids)
+    return new_c, assign
+
+
+def sample_rows(n: int, count: int, seed: int, device) -> torch.Tensor:
+    """``count`` row indices of ``n``, distinct when ``n >= count``."""
+    gen = torch.Generator().manual_seed(seed)
+    if n >= count:
+        idx = torch.randperm(n, generator=gen)[:count]
+    else:
+        idx = torch.randint(n, (count,), generator=gen)
+    return idx.to(device)
+
+
+def kmeans(x: torch.Tensor, n_clusters: int, iters: int = 20,
+           eta: float = 1.0, seed: int = 0) -> torch.Tensor:
+    """K-means in sketch space. Returns centroids f32 [n_clusters, d]."""
+    centroids = x[sample_rows(x.shape[0], n_clusters, seed, x.device)]
+    for _ in range(iters):
+        centroids, _ = _lloyd_step(x, centroids, eta)
+    return centroids
+
+
+def soar_cost(x, centroids, d2, p1, soar_lambda: float):
+    """SOAR secondary-assignment cost given the primary ``p1``: residual
+    norm plus the weighted component parallel to the primary residual.
+    ``d2`` is the caller's [N, C] base cost."""
+    r1 = x - centroids[p1]                                     # primary residual
+    r1n = r1 / (torch.linalg.norm(r1, dim=-1, keepdim=True) + 1e-9)
+    par = (x * r1n).sum(-1)[:, None] - r1n @ centroids.T      # (x - c_j) . r1_hat
+    return d2 + soar_lambda * par * par
+
+
+def assign_partitions(x, centroids, eta: float = 1.0,
+                      soar_lambda: float = 1.0):
+    """Primary + SOAR secondary partition per point. Returns (p1, p2) [N]."""
+    p1 = anisotropic_cost(x, centroids, eta).argmin(-1)
+    soar = soar_cost(x, centroids, _pairwise_sq_dist(x, centroids), p1,
+                     soar_lambda)
+    soar[torch.arange(x.shape[0], device=x.device), p1] = float("inf")
+    return p1, soar.argmin(-1)
+
+
+def partition_scores(q: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """Query-to-partition dot scores [B, C] (higher = search first)."""
+    return q @ centroids.T

@@ -1,0 +1,336 @@
+"""Dynamic ScaNN-style index: partitions + residual PQ + SOAR + exact
+rescore (port of ``repro/ann/scann.py``).
+
+  sparse embedding --CountSketch--> sketch
+      --centroid matmul--> top-``nprobe`` partitions
+      --fused PQ shortlist kernel over partition slabs--> ``reorder`` cands
+      --exact sparse rescore kernel--> final top-k.
+
+Storage discipline, as in the reference: one global slab row per point
+(the padded sparse row, by slot); per-(partition, position) PQ codes
+for the primary and the SOAR secondary copy; device arrays that grow by
+power-of-two doubling; host-side id -> (slot, (p1,pos1), (p2,pos2)) maps
+and per-partition free lists, so the slot and slab layout depend only on
+the operation sequence.
+
+Every ``lax.top_k`` of the reference is a stable descending sort here
+(``kernels.ref.topk_ref``): ties go to the lowest index, as they do there.
+Only the default shortlist path is ported: ``fused=False`` and
+``pq_int8=True`` raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.ann import partition as part_mod
+from repro_torch.ann import quantize as pq
+from repro_torch.ann.sparse import count_sketch
+from repro_torch.core.types import PAD_INDEX, SparseBatch
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import topk_ref
+from repro_torch.utils.device import resolve
+
+
+@dataclasses.dataclass(frozen=True)
+class ScannConfig:
+    d_proj: int = 64            # CountSketch dimension
+    n_partitions: int = 64
+    pq_subspaces: int = 8       # M (one byte/code each)
+    pq_centers: int = 256
+    nprobe: int = 8             # partitions searched per query
+    reorder: int = 128          # shortlist size for exact rescoring
+    eta: float = 4.0            # anisotropic weight (1.0 = plain L2)
+    soar_lambda: float = 1.0    # SOAR orthogonality weight (<0 disables SOAR)
+    kmeans_iters: int = 12
+    pq_iters: int = 8
+    fused: bool = True          # the fused shortlist (False: not ported)
+    pq_int8: bool = False       # int8 LUT shortlist (True: not ported)
+    seed: int = 13
+
+    @property
+    def use_soar(self) -> bool:
+        return self.soar_lambda >= 0
+
+
+def _query_step(q_idx, q_val, q_sketch, centroids, books, members,
+                codes_list, valid_list, sp_idx, sp_val, *, nprobe: int,
+                reorder: int, k: int):
+    """Batched query: returns (slots [B,k], dists [B,k]); empty = -1/+inf.
+
+    SOAR dedup happens at the shortlist cut: both copies of a point carry
+    the same slot number, so the fused kernel neutralises the lower-ranked
+    copy to -inf and the exact rescore sees each slot once.
+    """
+    b = q_idx.shape[0]
+    s = members.shape[1]
+    m = books.shape[0]
+
+    # 1) partition selection (dot scores)
+    pscores = part_mod.partition_scores(q_sketch, centroids)        # [B, C]
+    top_ps, top_parts = topk_ref(pscores, nprobe)                  # [B, np]
+
+    # 2+3) PQ LUT scoring over the probed slabs, SOAR dedup, shortlist
+    lut = pq.query_lut(q_sketch, books)                             # [B, M, C]
+    flat_slots = members[top_parts].reshape(b, -1)                  # [B, N]
+    flat_codes = codes_list[top_parts].reshape(b, -1, m)            # [B, N, M]
+    flat_valid = valid_list[top_parts].reshape(b, -1) & (flat_slots >= 0)
+    bias = top_ps.repeat_interleave(s, dim=-1)                      # + q . c_p
+    r = min(reorder, flat_slots.shape[-1])
+    short_scores, short_pos = ops.pq_score_dedup_topk(
+        lut, flat_codes, flat_slots, r, valid=flat_valid, bias=bias)
+    short_slots = torch.gather(flat_slots, 1, short_pos.long())
+    # -inf = invalid or duplicate SOAR copy; both drop out of the rescore
+    short_slots = torch.where(torch.isfinite(short_scores), short_slots, -1)
+
+    # 4) exact sparse-space rescore of the shortlist
+    safe = short_slots.clamp(min=0).long()
+    exact = ops.sparse_dot_batched(q_idx, q_val, sp_idx[safe], sp_val[safe])
+    exact = torch.where(short_slots >= 0, exact, float("-inf"))
+
+    final_scores, pos = topk_ref(exact, min(k, r))
+    final_slots = torch.gather(short_slots, 1, pos)
+    final_slots = torch.where(torch.isfinite(final_scores), final_slots, -1)
+    return final_slots, -final_scores
+
+
+class ScannIndex:
+    """Dynamic quantized index over sparse embeddings."""
+
+    def __init__(self, k_dims: int, cfg: ScannConfig, device=None):
+        if not cfg.fused:
+            raise NotImplementedError(
+                "ScannConfig(fused=False) needs the pq_score and "
+                "topk_select kernels, which are not ported yet")
+        if cfg.pq_int8:
+            raise NotImplementedError(
+                "ScannConfig(pq_int8=True) needs the int8 fused shortlist "
+                "kernel (fused_query_kernel_int8), which is not ported yet")
+        self.k_dims = k_dims
+        self.cfg = cfg
+        self.device = resolve(device)
+        self.capacity = 0
+        self.slot_of: dict[int, tuple] = {}  # id -> (slot, (p,pos), (p,pos)|None)
+        self.free_slots: list[int] = []
+        self.part_free: list[list[int]] = []
+        self.centroids = None
+        self.books = None
+        self.trained = False
+
+    def __len__(self) -> int:
+        return len(self.slot_of)
+
+    # ------------------------------------------------------------- storage
+
+    def _alloc(self, capacity: int, slab: int) -> None:
+        cfg = self.cfg
+        c = cfg.n_partitions
+        dev = self.device
+        self.capacity = capacity
+        self.slab = slab
+        self.sp_idx = torch.full((capacity, self.k_dims), PAD_INDEX,
+                                 dtype=torch.int64, device=dev)
+        self.sp_val = torch.zeros((capacity, self.k_dims), dtype=torch.float32,
+                                  device=dev)
+        self.members = torch.full((c, slab), -1, dtype=torch.int32, device=dev)
+        self.codes_list = torch.zeros((c, slab, cfg.pq_subspaces),
+                                      dtype=torch.uint8, device=dev)
+        self.valid_list = torch.zeros((c, slab), dtype=torch.bool, device=dev)
+        self.ids = np.full((capacity,), -1, np.int64)
+        self.free_slots = list(range(capacity - 1, -1, -1))
+        self.part_free = [list(range(slab - 1, -1, -1)) for _ in range(c)]
+
+    def _grow_slots(self, need: int) -> None:
+        new_cap = max(self.capacity, 64)
+        while new_cap < need:
+            new_cap *= 2
+        pad = new_cap - self.capacity
+        if pad == 0:
+            return
+        dev = self.device
+        self.sp_idx = torch.cat([self.sp_idx, torch.full(
+            (pad, self.k_dims), PAD_INDEX, dtype=torch.int64, device=dev)])
+        self.sp_val = torch.cat([self.sp_val, torch.zeros(
+            (pad, self.k_dims), dtype=torch.float32, device=dev)])
+        self.ids = np.concatenate([self.ids, np.full((pad,), -1, np.int64)])
+        self.free_slots = list(range(new_cap - 1, self.capacity - 1, -1)) \
+            + self.free_slots
+        self.capacity = new_cap
+
+    def _grow_slab(self) -> None:
+        old = self.slab
+        self.slab = old * 2
+        c = self.cfg.n_partitions
+        dev = self.device
+        self.members = torch.cat([self.members, torch.full(
+            (c, old), -1, dtype=torch.int32, device=dev)], dim=1)
+        self.codes_list = torch.cat([self.codes_list, torch.zeros(
+            (c, old, self.cfg.pq_subspaces), dtype=torch.uint8, device=dev)],
+            dim=1)
+        self.valid_list = torch.cat([self.valid_list, torch.zeros(
+            (c, old), dtype=torch.bool, device=dev)], dim=1)
+        for fl in self.part_free:
+            fl[:0] = range(self.slab - 1, old - 1, -1)
+
+    # ------------------------------------------------------------ training
+
+    def build(self, ids: np.ndarray, emb: SparseBatch) -> None:
+        """Offline build (paper §4.3): train partitions + codebooks, load.
+        Idempotent: previously loaded state is discarded."""
+        cfg = self.cfg
+        self.slot_of.clear()
+        n = emb.batch
+        sk = count_sketch(emb, cfg.d_proj, cfg.seed)
+        self.centroids = part_mod.kmeans(
+            sk, cfg.n_partitions, cfg.kmeans_iters, cfg.eta, cfg.seed)
+        p1, _ = part_mod.assign_partitions(sk, self.centroids, cfg.eta,
+                                           max(cfg.soar_lambda, 0.0))
+        self.books = pq.train_codebooks(
+            sk - self.centroids[p1], cfg.pq_subspaces, cfg.pq_centers,
+            cfg.pq_iters, cfg.eta, cfg.seed)
+        self.trained = True
+        per_copy = 2 if cfg.use_soar else 1
+        slab = 64
+        while slab * cfg.n_partitions < per_copy * n * 2:
+            slab *= 2
+        self._alloc(max(64, int(2 ** np.ceil(np.log2(max(n, 1) * 2)))), slab)
+        self.upsert(ids, emb)
+
+    @classmethod
+    def from_trained(cls, k_dims: int, cfg: ScannConfig, centroids, books,
+                     capacity: int = 1024, slab: int = 64,
+                     device=None) -> "ScannIndex":
+        """An EMPTY dynamic index from offline-trained structures (paper
+        §4.3): every point then arrives through the mutation path."""
+        idx = cls(k_dims, cfg, device)
+        idx.centroids = torch.as_tensor(centroids, dtype=torch.float32,
+                                        device=idx.device)
+        idx.books = torch.as_tensor(books, dtype=torch.float32,
+                                    device=idx.device)
+        idx.trained = True
+        cap = max(64, int(2 ** np.ceil(np.log2(max(capacity, 1)))))
+        s = max(64, int(2 ** np.ceil(np.log2(max(slab, 1)))))
+        idx._alloc(cap, s)
+        return idx
+
+    # ----------------------------------------------------------- mutations
+
+    def upsert(self, ids: np.ndarray, emb: SparseBatch) -> None:
+        self.finish_upsert(
+            self.begin_upsert(ids, emb, self.encode_upsert(ids, emb)))
+
+    def encode_upsert(self, ids: np.ndarray, emb: SparseBatch) -> dict:
+        """Stage A: sketch, partition routing, residual PQ codes (pure)."""
+        if not self.trained:
+            raise RuntimeError("build() the index before mutating it")
+        cfg = self.cfg
+        sk = count_sketch(emb, cfg.d_proj, cfg.seed)
+        p1, p2 = part_mod.assign_partitions(sk, self.centroids, cfg.eta,
+                                            max(cfg.soar_lambda, 0.0))
+        codes1 = pq.encode(sk - self.centroids[p1], self.books)
+        codes2 = pq.encode(sk - self.centroids[p2], self.books)
+        return {"p1": p1, "p2": p2, "codes1": codes1, "codes2": codes2}
+
+    def begin_upsert(self, ids: np.ndarray, emb: SparseBatch,
+                     staged: dict | None = None):
+        """Stage B: slot allocation on the host + batched device writes."""
+        if not self.trained:
+            raise RuntimeError("build() the index before mutating it")
+        cfg = self.cfg
+        ids = np.asarray(ids)
+        if staged is None:
+            staged = self.encode_upsert(ids, emb)
+        self.delete([pid for pid in ids.tolist() if pid in self.slot_of])
+        n = len(ids)
+        if len(self.slot_of) + n > self.capacity:
+            self._grow_slots(len(self.slot_of) + n)
+
+        p1_np = staged["p1"].cpu().numpy()
+        p2_np = staged["p2"].cpu().numpy()
+
+        slots = np.empty((n,), np.int64)
+        rows, cols, aslots, which, src = [], [], [], [], []
+        for i, pid in enumerate(ids.tolist()):
+            slot = self.free_slots.pop()
+            slots[i] = slot
+            self.ids[slot] = pid
+            copies = [(int(p1_np[i]), 0)]
+            if cfg.use_soar:
+                copies.append((int(p2_np[i]), 1))
+            recs = []
+            for p, w in copies:
+                if not self.part_free[p]:
+                    self._grow_slab()
+                pos = self.part_free[p].pop()
+                rows.append(p)
+                cols.append(pos)
+                aslots.append(slot)
+                which.append(w)
+                src.append(i)
+                recs.append((p, pos))
+            self.slot_of[pid] = (int(slot),) + tuple(recs)
+
+        dev = self.device
+        sl = torch.as_tensor(slots, device=dev)
+        self.sp_idx[sl] = emb.indices
+        self.sp_val[sl] = emb.values
+        rows_t = torch.as_tensor(rows, dtype=torch.int64, device=dev)
+        cols_t = torch.as_tensor(cols, dtype=torch.int64, device=dev)
+        src_t = torch.as_tensor(src, dtype=torch.int64, device=dev)
+        first = torch.as_tensor(which, device=dev)[:, None] == 0
+        codes_all = torch.where(first, staged["codes1"][src_t],
+                                staged["codes2"][src_t])
+        self.members[rows_t, cols_t] = torch.as_tensor(
+            aslots, dtype=torch.int32, device=dev)
+        self.codes_list[rows_t, cols_t] = codes_all
+        self.valid_list[rows_t, cols_t] = True
+        return None
+
+    def finish_upsert(self, pending=None) -> None:
+        """Barrier: wait for the device writes (the acknowledgement of a
+        mutation RPC means they are done)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def delete(self, ids) -> int:
+        rows, cols = [], []
+        n_del = 0
+        for pid in list(ids):
+            rec = self.slot_of.pop(int(pid), None)
+            if rec is None:
+                continue
+            n_del += 1
+            slot = rec[0]
+            self.ids[slot] = -1
+            self.free_slots.append(slot)
+            for p, pos in rec[1:]:
+                rows.append(p)
+                cols.append(pos)
+                self.part_free[p].append(pos)
+        if rows:
+            dev = self.device
+            self.valid_list[torch.as_tensor(rows, device=dev),
+                            torch.as_tensor(cols, device=dev)] = False
+        return n_del
+
+    # ------------------------------------------------------------- queries
+
+    def search(self, emb: SparseBatch, k: int):
+        """Top-k (ids [B,k], dists [B,k]); padding id=-1, dist=+inf."""
+        cfg = self.cfg
+        sk = count_sketch(emb, cfg.d_proj, cfg.seed)
+        slots, dists = _query_step(
+            emb.indices, emb.values, sk, self.centroids, self.books,
+            self.members, self.codes_list, self.valid_list,
+            self.sp_idx, self.sp_val,
+            nprobe=min(cfg.nprobe, cfg.n_partitions), reorder=cfg.reorder,
+            k=min(k, cfg.reorder))
+        slots, dists = slots.cpu().numpy(), dists.cpu().numpy()
+        ids = np.where(slots >= 0, self.ids[np.maximum(slots, 0)], -1)
+        if k > ids.shape[1]:
+            pad = ((0, 0), (0, k - ids.shape[1]))
+            ids = np.pad(ids, pad, constant_values=-1)
+            dists = np.pad(dists, pad, constant_values=np.inf)
+        return ids, dists.astype(np.float32)

@@ -1,0 +1,77 @@
+"""Carry the reference package's trained state into the port.
+
+Everything the reference draws from ``jax.random`` (bucket hyperplanes,
+k-means init, codebook init, scorer init) cannot be reproduced by a
+``torch.Generator``. To compare the two packages on the same state, the
+caller exports the reference's arrays as numpy and loads them here; this
+module sees only numpy arrays and plain numbers:
+
+    state = {
+        "bucket_params": {"hyperplanes:<mode>": f32 [T, D, bits], ...},
+        "idf": {"sorted_ids": uint32 [S], "weights": f32 [S],
+                "default_weight": f32 []},
+        "filter": {"sorted_ids": uint32 [F]},
+        "scorer": {"w0": ..., "b0": ..., "w1": ..., "b1": ..., "w2": ...,
+                   "b2": ...},
+        # backend "scann" only: the trained structures and the layout
+        # the reference's build chose, so slots and slabs line up
+        "centroids": f32 [C, d], "books": f32 [M, 256, d/M],
+        "capacity": int, "slab": int,
+    }
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.ann.brute import BruteIndex
+from repro_torch.ann.scann import ScannIndex
+from repro_torch.core.idf import FilterTable, IdfTable
+from repro_torch.utils.device import resolve
+
+
+def _t(a, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a).astype(dtype),
+                           device=resolve(device))
+
+
+def bucket_params(arrays: dict, device=None) -> dict:
+    return {k: _t(v, np.float32, device) for k, v in arrays.items()}
+
+
+def idf_table(arrays: dict, device=None) -> IdfTable:
+    return IdfTable(_t(arrays["sorted_ids"], np.int64, device),
+                    _t(arrays["weights"], np.float32, device),
+                    _t(arrays["default_weight"], np.float32, device))
+
+
+def filter_table(arrays: dict, device=None) -> FilterTable:
+    return FilterTable(_t(arrays["sorted_ids"], np.int64, device))
+
+
+def scorer_params(arrays: dict, device=None) -> dict:
+    return {k: _t(v, np.float32, device) for k, v in arrays.items()}
+
+
+def load_bootstrapped(gus, state: dict, ids: np.ndarray, features: dict) -> None:
+    """``DynamicGUS.bootstrap`` with the reference's trained state: install
+    its hyperplanes, tables and scorer, create the index from its trained
+    structures at its layout, then load the corpus through the mutation
+    path (as the reference's ``build`` does after training)."""
+    dev = gus.device
+    gus.embedder = gus.embedder.reload(idf=idf_table(state["idf"], dev),
+                                       filter_table=filter_table(
+                                           state["filter"], dev))
+    gus.embedder.params = bucket_params(state["bucket_params"], dev)
+    gus.scorer_params = scorer_params(state["scorer"], dev)
+    k_dims = gus.embedder.k_max
+    if gus.cfg.backend == "scann":
+        gus.index = ScannIndex.from_trained(
+            k_dims, gus.cfg.scann, state["centroids"], state["books"],
+            capacity=int(state["capacity"]), slab=int(state["slab"]),
+            device=dev)
+    else:
+        gus.index = BruteIndex(k_dims, device=dev)
+    gus.store.clear()
+    gus.index.upsert(np.asarray(ids), gus.embedder(features))
+    gus.store.put(ids, features)

@@ -1,0 +1,66 @@
+"""Inputs that hold each kernel against its plain version: seeded numpy
+arrays at a given shape, plus the fused shortlist's edge cases (those of
+``tests/test_kernels_fused.py``). ``tests/test_torch_kernels_cuda.py`` and
+``chip_smoke.py`` both draw from here, so the cases live in one place.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.core.types import PAD_INDEX
+
+FQ_ORDER = ("lut", "codes", "ids", "valid", "bias")
+
+
+def fused_query_inputs(rng, b: int, n: int, m: int, c: int, id_pool: int,
+                       tomb: float, ties: bool = False) -> dict:
+    """lut [B,M,C], codes [B,N,M], ids [B,N] drawn from ``id_pool`` values
+    (duplicates stand for SOAR copies), valid [B,N] with ``tomb`` of the
+    slots tombstoned, bias [B,N]; ``ties`` draws scores from few values."""
+    if ties:
+        lut = rng.choice(np.asarray([-1.5, -0.25, 0.0, 0.5, 2.0], np.float32),
+                         size=(b, m, c))
+        bias = rng.choice(np.asarray([0.0, 0.75], np.float32), size=(b, n))
+    else:
+        lut = rng.normal(size=(b, m, c)).astype(np.float32)
+        bias = rng.normal(size=(b, n)).astype(np.float32)
+    return {"lut": lut, "codes": rng.integers(0, c, (b, n, m), dtype=np.uint8),
+            "ids": rng.integers(0, id_pool, (b, n)).astype(np.int32),
+            "valid": rng.random((b, n)) >= tomb, "bias": bias}
+
+
+def fused_query_edge_cases(rng) -> list:
+    """(name, inputs, k) for score ties with heavy duplicate ids, all-invalid
+    rows, k = N, k = the number of live rows with every live id duplicated,
+    and uniform scores (candidate order decides)."""
+    live = fused_query_inputs(rng, 1, 12, 2, 4, 2, 0.0)
+    live["ids"] = np.asarray([[5, 5, 7, 7, 9, 9, 1, 1, 2, 2, 3, 3]], np.int32)
+    live["valid"] = np.asarray([[1, 1, 1, 1, 0, 0, 1, 1, 0, 0, 1, 1]]) == 1
+    uniform = {"lut": np.ones((1, 1, 2), np.float32),
+               "codes": np.zeros((1, 8, 1), np.uint8),
+               "ids": np.asarray([[4, 4, 4, 2, 2, 8, 8, 8]], np.int32),
+               "valid": np.ones((1, 8), bool),
+               "bias": np.zeros((1, 8), np.float32)}
+    return [("ties+dups", fused_query_inputs(rng, 4, 160, 6, 24, 5, 0.4, True),
+             64),
+            ("all-invalid", fused_query_inputs(rng, 2, 17, 2, 4, 3, 1.0), 17),
+            ("k=n", fused_query_inputs(rng, 2, 33, 3, 8, 10, 0.4), 33),
+            ("k=live rows", live, 8),
+            ("uniform", uniform, 8)]
+
+
+def sparse_rows(rng, shape, vocab: int, unit: bool):
+    """Sorted int64 indices below ``vocab`` with the last two of each row
+    padding (``PAD_INDEX`` sorts last, value 0); unit or IDF-like values."""
+    idx = np.sort(rng.integers(0, vocab, shape), axis=-1).astype(np.int64)
+    idx[..., -2:] = PAD_INDEX
+    val = (np.ones(shape, np.float32) if unit
+           else (rng.random(shape) * 3 + 0.1).astype(np.float32))
+    val[..., -2:] = 0.0
+    return idx, val
+
+
+def scorer_inputs(rng, b: int, f: int, h: int) -> list:
+    """feats [B,F] and the weights w0 b0 w1 b1 w2 b2 of an F-H-H-1 MLP."""
+    shapes = [(b, f), (f, h), (h,), (h, h), (h,), (h, 1), (1,)]
+    return [rng.normal(size=s).astype(np.float32) for s in shapes]

@@ -37,6 +37,10 @@ def pytest_configure(config):
         "-m 'not chaos' for the quick lane")
     config.addinivalue_line(
         "markers",
+        "cuda: needs a CUDA card (the port's hand-written kernels); skips "
+        "where there is none")
+    config.addinivalue_line(
+        "markers",
         "timeout(seconds): per-test wall-clock limit enforced via SIGALRM "
         f"(defaults: {QUICK_TIMEOUT_S}s, {SLOW_TIMEOUT_S}s for "
         "@slow/@chaos)")

@@ -1,0 +1,119 @@
+"""Each CUDA kernel of the port against its plain PyTorch version, on the
+card. Whether there is a card is decided in the ``card`` fixture, so
+without one every test here skips. Run on the H100 with
+
+    python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+
+This file imports no jax: the machine with the card has none. The port's
+agreement with the reference is held by the CPU tests (test_torch_*.py).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.types import PAD_INDEX
+from repro_torch.kernels import cases, fused_query, ops, scorer_mlp, sparse_dot
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _fq_check(case, k, dev):
+    args = [torch.as_tensor(case[name]).to(dev) for name in cases.FQ_ORDER]
+    before = fused_query.fused_query_kernel.launches
+    got = fused_query.fused_query_kernel(*args, k)
+    want = fused_query.fused_query_plain(*args, k)
+    torch.cuda.synchronize()
+    assert fused_query.fused_query_kernel.launches == before + 1
+    # bitwise: values (with -inf placement) and indices (tie order)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
+    return got
+
+
+@pytest.mark.parametrize("n,k", [(8192, 128), (16384, 128), (65536, 128),
+                                 (300, 300), (1000, 1)])
+def test_fused_query_matches_plain_bitwise(card, n, k):
+    """B=16, M=8, C=256 as on the main path: N = nprobe x the offline
+    slab (8 x 1,024), a doubled slab (opt-in shared memory; the arxiv run
+    of chip_smoke.py reaches N = 32,768), a slab whose scores need global
+    scratch, k = N and k = 1."""
+    rng = np.random.default_rng(n + k)
+    _fq_check(cases.fused_query_inputs(rng, 16, n, 8, 256, max(2, n // 3),
+                                       0.3), k, card)
+
+
+@pytest.mark.parametrize("name", ["ties+dups", "all-invalid", "k=n",
+                                  "k=live rows", "uniform"])
+def test_fused_query_edge_cases(card, name):
+    edge = {n: (case, k) for n, case, k in
+            cases.fused_query_edge_cases(np.random.default_rng(7))}
+    case, k = edge[name]
+    vals, idxs = _fq_check(case, k, card)
+    if name == "all-invalid":
+        # all-invalid rows select 0..k-1 with -inf values
+        assert torch.isneginf(vals).all()
+        assert torch.equal(idxs.cpu(), torch.arange(k, dtype=torch.int32)
+                           .repeat(2, 1))
+    if name == "uniform":
+        # uniform scores keep candidate order; later copies become -inf
+        assert torch.equal(idxs.cpu()[0], torch.arange(8, dtype=torch.int32))
+        assert torch.isfinite(vals.cpu()[0]).tolist() == [
+            True, False, False, True, False, True, False, False]
+
+
+@pytest.mark.parametrize("unit", [True, False])
+def test_sparse_dot_batched_matches_plain(card, unit):
+    """The rescore at its main-path shape: B=16, R=128, Kq=Kd=9."""
+    rng = np.random.default_rng(1)
+    q = cases.sparse_rows(rng, (16, 9), 40, unit)
+    db = cases.sparse_rows(rng, (16, 128, 9), 40, unit)
+    db[0][3] = PAD_INDEX                          # an all-padded row block
+    args = [torch.as_tensor(a).to(card) for a in (*q, *db)]
+    before = sparse_dot.sparse_dot_batched.launches
+    got = sparse_dot.sparse_dot_batched(*args)
+    want = sparse_dot.sparse_dot_plain(*args)
+    torch.cuda.synchronize()
+    assert sparse_dot.sparse_dot_batched.launches == before + 1
+    if unit:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,unit", [(262_144, True), (4099, False)])
+def test_sparse_dot_shared_db_matches_plain(card, n, unit):
+    """The brute-force form at the capacity the arxiv-scale index reaches
+    (N = 262,144, 64 queries) and at a ragged N with IDF-like weights."""
+    rng = np.random.default_rng(n)
+    q = cases.sparse_rows(rng, (64, 9), 5000, unit)
+    db = cases.sparse_rows(rng, (n, 9), 5000, unit)
+    args = [torch.as_tensor(a).to(card) for a in (*q, *db)]
+    before = sparse_dot.sparse_dot.launches
+    got = ops.sparse_dot(*args)
+    want = sparse_dot.sparse_dot_plain(*args)
+    torch.cuda.synchronize()
+    assert sparse_dot.sparse_dot.launches == before + 1
+    if unit:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,f,h", [(160, 3, 10), (1, 7, 32), (1000, 5, 1)])
+def test_scorer_mlp_matches_plain(card, b, f, h):
+    rng = np.random.default_rng(b + f + h)
+    args = [torch.as_tensor(a).to(card)
+            for a in cases.scorer_inputs(rng, b, f, h)]
+    before = scorer_mlp.scorer_mlp.launches
+    got = scorer_mlp.scorer_mlp(*args)
+    want = scorer_mlp.scorer_mlp_plain(*args)
+    torch.cuda.synchronize()
+    assert scorer_mlp.scorer_mlp.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)

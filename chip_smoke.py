@@ -12,20 +12,36 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    one neighborhood RPC timed apart as set-up (they load kernel modules),
    then 20 mutation batches with a 16-id neighborhood RPC after every other
    one, and the recall of the index against the exact brute-force index on
-   64 live ids drawn with a fixed seed.
-   Kernel launch counts are zeroed just before and read just after; every
-   kernel must have run;
-3. hold every kernel against its plain PyTorch version on the card at the
-   shapes the main path reached (the slab grows with partition skew), the
-   fused shortlist also at a global-scratch slab and at its edge cases
-   (fused_query bitwise, sparse_dot and scorer_mlp within rtol/atol 1e-6),
-   and time kernel and plain version with CUDA events;
-4. print one JSON line with each kernel's numbers, then the result line.
+   64 live ids drawn with a fixed seed;
+3. the index configurations, on the main path's index after its stream:
+   copies of the index with ``fused=False``, ``pq_int8=True`` and both
+   answer the 64 recall queries; ``fused=False`` must equal the fused
+   index bitwise, and each reports recall@10;
+4. the maintained graph: a second engine on the same corpus with
+   ``GraphConfig(k=8)`` (the setting of ``benchmarks/graph_maintenance.py``:
+   width 64; merges and reads both run the top-k kernel), bootstrapped
+   with graph seeding, one set-up RPC of each kind, 20 mutation batches
+   with graph maintenance and 10 fast-path neighborhood RPCs of 16 ids;
+   the adjacency must be exactly symmetric and its connected components
+   equal to union-find over its edges; edge recall against an offline
+   rebuild at matched k on 1,024 live ids drawn with a fixed seed;
+5. hold every kernel against its plain PyTorch version on the card at the
+   shapes the paths reached, plus edge cases (fused_query, its int8
+   instance, topk_select and pq_score bitwise; sparse_dot and scorer_mlp
+   within rtol/atol 1e-6), and time kernel and plain version with CUDA
+   events;
+6. print one JSON line with each kernel's numbers, then the result line.
+
+Phases 2-4 each zero the kernel launch counts just before they start and
+read them just after; every kernel a phase runs must have launched in it.
+``pq_score`` (shared codes) has no caller on any path; its launches are
+counted around one call in phase 5.
 
 It imports nothing of JAX and nothing of the reference package.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import subprocess
@@ -73,14 +89,16 @@ def _max_abs_err(got, want) -> float:
     return float((got - want).abs().masked_fill(same, 0.0).max())
 
 
-# ---------------------------------------------------------------- phase 3
+# ---------------------------------------------------------------- phase 5
 
 def check_kernels(torch, dev, shapes: dict) -> dict:
-    """Phase 3: every kernel against its plain version on the card, at the
-    main path's shapes (``shapes``); the fused shortlist also at a slab
-    whose scores need global scratch and at its edge cases (the inputs come
-    from ``repro_torch.kernels.cases``, shared with the card tests)."""
-    from repro_torch.kernels import cases, fused_query, scorer_mlp, sparse_dot
+    """Phase 5: every kernel against its plain version on the card, at the
+    paths' shapes (``shapes``); the fused shortlist (both instances) also
+    at its edge cases, the f32 one at a slab whose scores need global
+    scratch, the top-k selection at its edge cases (the inputs come from
+    ``repro_torch.kernels.cases``, shared with the card tests)."""
+    from repro_torch.kernels import (cases, fused_query, ops, pq_score,
+                                     scorer_mlp, sparse_dot, topk_select)
 
     def on_card(arrays):
         return [torch.as_tensor(a).to(dev) for a in arrays]
@@ -158,6 +176,122 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
                               torch),
             bound_ms=bound, bound_by=by)
 
+    # fused_query_int8: the same cases through the int8 table (quantised on
+    # the card, as the shortlist does); bitwise everywhere
+    for name, inputs, k in [fq_cases[0]] + cases.fused_query_edge_cases(rng):
+        args = on_card([inputs[a] for a in cases.FQ_ORDER])
+        table = ops.quantize_lut(args[0])
+        got = fused_query.fused_query_kernel_int8(*table, *args[1:], k)
+        want = fused_query.fused_query_int8_plain(*table, *args[1:], k)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[1], want[1]) and torch.equal(got[0],
+                                                             want[0])):
+            raise AssertionError(f"fused_query_int8 differs from its plain "
+                                 f"version ({name})")
+        print(f"[kernels] fused_query_int8 {name}: bitwise equal")
+        if name == "main":
+            int8_args, err = (*table, *args[1:]), _max_abs_err(got[0],
+                                                               want[0])
+    b, n, m = int8_args[2].shape
+    bound, by = _bound_ms(
+        b * m * c * 1 + b * m * 4 + b * n * (m + 4 + 1 + 4) + b * main_k * 8,
+        b * m * c + b * n * (m + 1) + b * n)
+    report["fused_query_int8"] = dict(
+        shape=f"B={b} N={n} M={m} C={c} k={main_k}", max_abs_err=err,
+        ms=_time_ms(lambda: fused_query.fused_query_kernel_int8(
+            *int8_args, main_k), torch),
+        plain_ms=_time_ms(lambda: fused_query.fused_query_int8_plain(
+            *int8_args, main_k), torch),
+        bound_ms=bound, bound_by=by)
+
+    # topk_select: the graph's merge and read shapes plus edge cases,
+    # bitwise; torch.topk timed beside it as the library call (its order
+    # at ties is not promised lowest-index-first, so it is no substitute)
+    b, n, k = shapes["topk_merge"]
+    topk_cases = [("merge", cases.topk_inputs(rng, b, n), k),
+                  ("read", cases.topk_inputs(rng, *shapes["topk_read"][:2]),
+                   shapes["topk_read"][2])] + cases.topk_edge_cases(rng)
+    for name, scores, k in topk_cases:
+        scores = torch.as_tensor(scores).to(dev)
+        got = topk_select.topk_select(scores, k)
+        want = topk_select.topk_select_plain(scores, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[1], want[1]) and torch.equal(got[0],
+                                                             want[0])):
+            raise AssertionError(f"topk_select differs from its plain "
+                                 f"version ({name})")
+        print(f"[kernels] topk_select {name} {tuple(scores.shape)} k={k}: "
+              f"bitwise equal")
+        if name in ("merge", "read"):
+            b, n = scores.shape
+            bound, by = _bound_ms(b * n * 4 + b * k * 8, b * n)
+            report[f"topk_select {name}"] = dict(
+                shape=f"B={b} N={n} k={k}",
+                max_abs_err=_max_abs_err(got[0], want[0]),
+                ms=_time_ms(lambda: topk_select.topk_select(scores, k), torch),
+                plain_ms=_time_ms(lambda: topk_select.topk_select_plain(
+                    scores, k), torch),
+                library_ms=_time_ms(lambda: torch.topk(scores, k), torch),
+                bound_ms=bound, bound_by=by)
+
+    # above k = 64 ops.topk_select runs the plain stable sort, as the
+    # reference runs lax.top_k there: the kernel timed beside it at the
+    # unfused shortlist's top-reorder and at a GraphConfig(k=10) merge
+    # (width 80 + 64 candidates), and held bitwise to it
+    above = {}
+    for name, (b, n, k) in (("shortlist", (64, 32768, 128)),
+                            ("merge k=10", (1024, 144, 80))):
+        scores = torch.as_tensor(cases.topk_inputs(rng, b, n)).to(dev)
+        got = topk_select.topk_select(scores, k)
+        want = topk_select.topk_select_plain(scores, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[1], want[1]) and torch.equal(got[0],
+                                                             want[0])):
+            raise AssertionError(f"topk_select differs from its plain "
+                                 f"version above k = 64 ({name})")
+        above[name] = dict(
+            shape=f"B={b} N={n} k={k}",
+            kernel_ms=_time_ms(lambda: topk_select.topk_select(scores, k),
+                               torch),
+            sort_ms=_time_ms(lambda: topk_select.topk_select_plain(scores, k),
+                             torch))
+    print("[kernels] topk_select above k = 64, kernel vs its plain version "
+          "(stable sort): " + json.dumps(above))
+
+    # pq_score_batched (the fused=False shortlist's shape) and pq_score
+    # (shared codes), bitwise
+    for name, fn, b, n in (("pq_score_batched", pq_score.pq_score_batched,
+                            shapes["fq_b"], shapes["fq_n"]),
+                           ("pq_score", pq_score.pq_score, 16, 131072)):
+        inputs = cases.fused_query_inputs(rng, b, n, 8, 256, 2, 0.0)
+        lut = torch.as_tensor(inputs["lut"]).to(dev)
+        codes = torch.as_tensor(inputs["codes"]).to(dev)
+        if name == "pq_score":
+            codes = codes[0].contiguous()
+            # no path calls the shared form: its launches are counted
+            # around this call
+            before = pq_score.pq_score.launches
+            got = fn(lut, codes)
+            launches = pq_score.pq_score.launches - before
+        else:
+            got = fn(lut, codes)
+            launches = None
+        want = pq_score.pq_score_plain(lut, codes)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} differs from its plain version")
+        print(f"[kernels] {name} B={b} N={n}: bitwise equal")
+        m, c = lut.shape[1], lut.shape[2]
+        bound, by = _bound_ms(b * m * c * 4 + codes.numel() + b * n * 4,
+                              b * n * m)
+        report[name] = dict(
+            shape=f"B={b} N={n} M={m} C={c}",
+            max_abs_err=_max_abs_err(got, want),
+            ms=_time_ms(lambda: fn(lut, codes), torch),
+            plain_ms=_time_ms(lambda: pq_score.pq_score_plain(lut, codes),
+                              torch),
+            bound_ms=bound, bound_by=by, launches=launches)
+
     # scorer_mlp: 16 queries x 10 neighbors of arxiv pair features
     b, f, h = shapes["mlp"]
     args = on_card(cases.scorer_inputs(rng, b, f, h))
@@ -180,9 +314,11 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
 
 # ---------------------------------------------------------------- phase 2
 
-def profile_rpcs(torch, gus, stream, n: int = 4) -> dict:
+def profile_rpcs(torch, gus, stream, n: int = 4, label: str = "") -> dict:
     """Device time by kernel, and the device's idle share, over ``n``
-    neighborhood RPCs and ``n`` mutation RPCs under torch.profiler."""
+    neighborhood RPCs and ``n`` mutation RPCs under torch.profiler (with a
+    maintained graph: fast-path reads, and mutations with their graph
+    tick)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -213,7 +349,7 @@ def profile_rpcs(torch, gus, stream, n: int = 4) -> dict:
             device_idle_share=1.0 - busy_ms / wall_ms,
             top=[(e.key[:60], e.count // n,
                   e.self_device_time_total / 1e3 / n) for e in top])
-        print(f"[profile] {rpc}: " + json.dumps(out[rpc]))
+        print(f"[profile] {label}{rpc}: " + json.dumps(out[rpc]))
     return out
 
 
@@ -291,13 +427,7 @@ def run_main_path(torch, n_points: int, dev) -> tuple[dict, dict]:
     qids = np.random.default_rng(1).choice(live, 64, replace=False)
     emb = gus.embedder(gus.store.gather(qids))
     bids, bd = brute.search(emb, 10)
-    sids, sd = gus.index.search(emb, 10)
-    ok = tot = 0
-    for r in range(len(qids)):                    # as tests/test_ann.py:51-66
-        kth = bd[r][bids[r] >= 0][:10].max()
-        got = sd[r][sids[r] >= 0]
-        tot += min(10, (bd[r] < 0).sum())
-        ok += ((got <= kth) & (got < 0)).sum()
+    recall = _recall_at_10((bids, bd), gus.index.search(emb, 10))
     torch.cuda.synchronize()
     counts = ops.launch_counts()
 
@@ -314,18 +444,253 @@ def run_main_path(torch, n_points: int, dev) -> tuple[dict, dict]:
                first_mutation_ms=first_ms[0], first_neighbors_ms=first_ms[1],
                mutation_p50_ms=mut["p50_ms"], mutation_p99_ms=mut["p99_ms"],
                neighbors_p50_ms=qry["p50_ms"], neighbors_p99_ms=qry["p99_ms"],
-               recall_at_10=float(ok / max(tot, 1)), same_cluster=same_rate,
+               recall_at_10=recall, same_cluster=same_rate,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                launches=counts)
     print("[main] " + json.dumps(out))
     profile_rpcs(torch, gus, stream)
-    missing = [k for k, v in counts.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
+    _require_launched(counts, ("fused_query", "sparse_dot_batched",
+                               "sparse_dot", "scorer_mlp"), "the main path")
     if not same_rate > 0.7:
         raise AssertionError(f"same-cluster rate {same_rate} <= 0.7")
+    ctx = dict(gus=gus, qids=qids, exact=(bids, bd), data=data,
+               scorer=scorer, buckets=buckets)
+    return out, shapes, ctx
+
+
+def _require_launched(counts: dict, names, where: str) -> None:
+    missing = [n for n in names if counts[n] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on {where}: {missing}")
+
+
+def _recall_at_10(exact, found) -> float:
+    """Tie-aware recall of ``found`` against the exact index's answer, as
+    tests/test_ann.py:51-66."""
+    (bids, bd), (sids, sd) = exact, found
+    ok = tot = 0
+    for r in range(len(bids)):
+        kth = bd[r][bids[r] >= 0][:10].max()
+        got = sd[r][sids[r] >= 0]
+        tot += min(10, (bd[r] < 0).sum())
+        ok += ((got <= kth) & (got < 0)).sum()
+    return float(ok / max(tot, 1))
+
+
+# ---------------------------------------------------------------- phase 3
+
+def run_index_configs(torch, ctx: dict) -> dict:
+    """Phase 3: copies of the main path's index with the other shortlist
+    configurations answer the 64 recall queries (no new bootstrap)."""
+    from repro_torch.kernels import ops
+
+    gus = ctx["gus"]
+    emb = gus.embedder(gus.store.gather(ctx["qids"]))
+    base = gus.index.cfg
+    configs = {"fused": base,
+               "unfused": dataclasses.replace(base, fused=False),
+               "int8": dataclasses.replace(base, pq_int8=True),
+               "int8 unfused": dataclasses.replace(base, fused=False,
+                                                   pq_int8=True)}
+    found, search_ms = {}, {}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for name, cfg in configs.items():
+        index = copy.copy(gus.index)       # shares the device state
+        index.cfg = cfg
+        found[name] = index.search(emb, 10)
+        # steady state: median of 5 more searches (results on the host)
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            index.search(emb, 10)
+            times.append((time.perf_counter() - t0) * 1e3)
+        search_ms[name] = float(np.median(times))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for f32, other in (("fused", "unfused"), ("int8", "int8 unfused")):
+        for want, got in zip(found[f32], found[other]):
+            if not np.array_equal(want, got):
+                raise AssertionError(f"{other} differs from {f32}")
+    out = dict(recall_at_10={n: _recall_at_10(ctx["exact"], f)
+                             for n, f in found.items()},
+               search_p50_ms_64_queries=search_ms, launches=counts)
+    print("[configs] unfused == fused and int8 unfused == int8 fused, "
+          "bitwise; " + json.dumps(out))
+    _require_launched(counts, ("fused_query", "fused_query_int8",
+                               "pq_score_batched", "sparse_dot_batched"),
+                      "the index configurations")
+    return out
+
+
+# ---------------------------------------------------------------- phase 4
+
+def _check_symmetric(store) -> None:
+    """Every directed entry (r, t, w) has exactly one mirror (t, r, w), and
+    no entry references a dead slot."""
+    s = store.nbr_slots.cpu().numpy()
+    w = store.nbr_w.cpu().numpy().view(np.int32)      # compare weight bits
+    r, c = np.nonzero(s >= 0)
+    t = s[r, c]
+    fwd = np.stack([r, t, w[r, c]], axis=1)
+    back = np.stack([t, r, w[r, c]], axis=1)
+    fwd = fwd[np.lexsort(fwd.T[::-1])]
+    back = back[np.lexsort(back.T[::-1])]
+    if not np.array_equal(fwd, back):
+        raise AssertionError("the adjacency is not symmetric")
+    if len(np.unique(fwd[:, :2], axis=0)) != len(fwd):
+        raise AssertionError("a row holds the same neighbor twice")
+    if (store.id_of_slot[t] < 0).any():
+        raise AssertionError("an entry references a dead slot")
+
+
+def host_profile(torch, gus, stream, n: int) -> list:
+    """Host time by Python function (cProfile, own time) over ``n``
+    mutation RPCs with their graph tick: where the host spends a tick."""
+    import cProfile
+    import pstats
+
+    batches = [next(stream) for _ in range(n)]
+    prof = cProfile.Profile()
+    prof.enable()
+    for batch in batches:
+        gus.mutate(batch)
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    top = sorted(stats.items(), key=lambda kv: kv[1][2], reverse=True)[:10]
+    rows = [(f"{fn[0].rsplit('/', 1)[-1]}:{fn[1]}:{fn[2]}", calls // n,
+             own * 1e3 / n) for fn, (_, calls, own, _, _) in top]
+    print("[profile] graph host, own ms per tick: " + json.dumps(rows))
+    return rows
+
+
+def run_graph_path(torch, dev, ctx: dict) -> tuple[dict, dict]:
+    """Phase 4: the maintained graph on the main path's corpus, scorer and
+    index configuration. Returns its metrics and its top-k shapes."""
+    from repro_torch.core.graph import GraphAccumulator
+    from repro_torch.core.grale import top_k_per_point
+    from repro_torch.core.gus import DynamicGUS, GusConfig
+    from repro_torch.data.stream import MutationStream, StreamConfig
+    from repro_torch.graph import GraphConfig, offline_components
+    from repro_torch.kernels import ops
+
+    k = 8
+    data = ctx["data"]
+    stream = MutationStream(data, StreamConfig(seed=0), bootstrap_fraction=0.6)
+    boot_ids, boot_feats = stream.bootstrap()
+    cfg = GusConfig(scann_nn=k, scann=ctx["gus"].cfg.scann,
+                    graph=GraphConfig(k=k, capacity=2 * len(boot_ids)))
+    gus = DynamicGUS(data.spec, ctx["buckets"], ctx["scorer"], cfg,
+                     device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gus.bootstrap(boot_ids, boot_feats)
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    seed_s = gus.graph_timer.samples_ms.pop() / 1e3
+    seeded = gus.graph.describe()
+    print(f"[graph] bootstrap {boot_s:.1f} s (graph seeding {seed_s:.1f} s): "
+          + json.dumps(seeded))
+
+    def mutate(batch) -> float:
+        t = time.perf_counter()
+        gus.mutate(batch)
+        return (time.perf_counter() - t) * 1e3
+
+    first = (mutate(next(stream)), gus.mutation_timer.samples_ms.pop(),
+             gus.graph_timer.samples_ms.pop())
+    gus.neighbors_of_ids(stream.query_ids(16))
+    first += (gus.query_timer.samples_ms.pop(),)
+    whole = [mutate(batch) for _, batch in zip(range(20), stream)]
+    for _ in range(10):
+        res = gus.neighbors_of_ids(stream.query_ids(16))
+        if res.ids.shape != (16, k) or not np.isfinite(
+                res.weights[res.ids >= 0]).all():
+            raise AssertionError("fast-path RPC returned bad rows")
+    if len(gus.query_timer.samples_ms) != 10:
+        raise AssertionError("a fast-path RPC did not read the graph")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    _check_symmetric(gus.graph)
+    t0 = time.perf_counter()
+    labels = gus.graph.components()
+    cc_ms = (time.perf_counter() - t0) * 1e3
+    pairs, _ = gus.graph.edges()
+    if labels != offline_components(pairs,
+                                    np.asarray(sorted(gus.graph.slot_of))):
+        raise AssertionError("graph CC differs from union-find")
+
+    # edge recall against an offline rebuild at matched k, on 1,024 live
+    # ids from a fixed seed (benchmarks/graph_maintenance.py:35-47,74-76)
+    sample = np.random.default_rng(2).choice(gus.store.ids(), 1024,
+                                             replace=False)
+    acc = GraphAccumulator()
+    for lo in range(0, sample.size, 256):
+        chunk = sample[lo:lo + 256]
+        acc.add_result(chunk, gus._index_neighbors_of_ids(chunk, k))
+    off_pairs, off_w = acc.edges()
+    keep = top_k_per_point(off_pairs, off_w, int(off_pairs.max()) + 1, k)
+    offline = {tuple(p) for p in off_pairs[keep].tolist()}
+    mine = {tuple(p) for p in pairs.tolist()}
+    recall = len(offline & mine) / max(len(offline), 1)
+
+    mut = gus.mutation_timer.summary()
+    tick = gus.graph_timer.summary()
+    qry = gus.query_timer.summary()
+    desc = gus.graph.describe()
+    out = dict(bootstrapped=len(boot_ids), bootstrap_s=boot_s,
+               graph_seed_s=seed_s, seeded_edges=seeded["edges"],
+               first_mutate_ms=first[0], first_mutation_ms=first[1],
+               first_graph_tick_ms=first[2], first_fast_path_ms=first[3],
+               mutation_p50_ms=mut["p50_ms"], mutation_p99_ms=mut["p99_ms"],
+               graph_tick_p50_ms=tick["p50_ms"],
+               graph_tick_p99_ms=tick["p99_ms"],
+               mutate_with_graph_p50_ms=float(np.percentile(whole, 50)),
+               mutate_with_graph_p99_ms=float(np.percentile(whole, 99)),
+               fast_path_p50_ms=qry["p50_ms"], fast_path_p99_ms=qry["p99_ms"],
+               nodes=desc["nodes"], edges=desc["edges"],
+               capacity=desc["capacity"], width=desc["width"],
+               repair_backlog=desc["repair_backlog"],
+               cc_iters=gus.graph.cc_iters, cc_components=desc[
+                   "cc_components"], cc_ms=cc_ms,
+               edge_recall=recall, offline_edges=len(offline),
+               peak_mem_gb=peak_gb, launches=counts)
+    print("[graph] symmetric; CC equals union-find; " + json.dumps(out))
+    out["profile"] = profile_rpcs(torch, gus, stream, n=2, label="graph ")
+    out["host_top"] = host_profile(torch, gus, stream, n=2)
+    _require_launched(counts, ("topk_select", "fused_query",
+                               "sparse_dot_batched", "scorer_mlp"),
+                      "the graph path")
+    if not recall > 0.5:
+        raise AssertionError(f"edge recall {recall} <= 0.5")
+    shapes = dict(merge=(1024, gus.graph.width + 64, gus.graph.width),
+                  read=(16, gus.graph.width, k))
     return out, shapes
+
+
+SOURCES = {  # kernel -> (CUDA source, TPU kernel it replaces, path)
+    "fused_query": ("src/repro_torch/kernels/csrc/fused_query.cu",
+                    "src/repro/kernels/fused_query.py:172", "main"),
+    "fused_query_int8": ("src/repro_torch/kernels/csrc/fused_query.cu",
+                         "src/repro/kernels/fused_query.py:203", "configs"),
+    "sparse_dot_batched": ("src/repro_torch/kernels/csrc/sparse_dot.cu",
+                           "src/repro/kernels/sparse_dot.py:39", "main"),
+    "sparse_dot": ("src/repro_torch/kernels/csrc/sparse_dot.cu",
+                   "src/repro/kernels/sparse_dot.py:68", "main"),
+    "scorer_mlp": ("src/repro_torch/kernels/csrc/scorer_mlp.cu",
+                   "src/repro/kernels/scorer_mlp.py:33", "main"),
+    "topk_select": ("src/repro_torch/kernels/csrc/topk_select.cu",
+                    "src/repro/kernels/topk_select.py:42", "graph"),
+    "pq_score_batched": ("src/repro_torch/kernels/csrc/pq_score.cu",
+                         "src/repro/kernels/pq_score.py:37", "configs"),
+    "pq_score": ("src/repro_torch/kernels/csrc/pq_score.cu",
+                 "src/repro/kernels/pq_score.py:63", "kernel check"),
+}
 
 
 def main() -> int:
@@ -348,27 +713,32 @@ def main() -> int:
 
     from repro_torch.data.synthetic import OGB_ARXIV_NODES
     dev = torch.device("cuda")
-    main_path, shapes = run_main_path(torch, OGB_ARXIV_NODES, dev)
+    main_path, shapes, ctx = run_main_path(torch, OGB_ARXIV_NODES, dev)
+    configs = run_index_configs(torch, ctx)
+    graph, graph_shapes = run_graph_path(torch, dev, ctx)
+    del ctx
+    shapes.update(topk_merge=graph_shapes["merge"],
+                  topk_read=graph_shapes["read"])
     report = check_kernels(torch, dev, shapes)
 
-    sources = {"fused_query": ("src/repro_torch/kernels/csrc/fused_query.cu",
-                               "src/repro/kernels/fused_query.py:172"),
-               "sparse_dot_batched": (
-                   "src/repro_torch/kernels/csrc/sparse_dot.cu",
-                   "src/repro/kernels/sparse_dot.py:39"),
-               "sparse_dot": ("src/repro_torch/kernels/csrc/sparse_dot.cu",
-                              "src/repro/kernels/sparse_dot.py:68"),
-               "scorer_mlp": ("src/repro_torch/kernels/csrc/scorer_mlp.cu",
-                              "src/repro/kernels/scorer_mlp.py:33")}
+    path_counts = {"main": main_path["launches"],
+                   "configs": configs["launches"],
+                   "graph": graph["launches"]}
     kernels = []
-    for name, (source, replaces) in sources.items():
-        rep = report[name]
+    for name, (source, replaces, path) in SOURCES.items():
+        # topk_select's line carries the merge shape, the larger of its two
+        rep = report["topk_select merge" if name == "topk_select" else name]
+        launches = (rep["launches"] if path == "kernel check"
+                    else path_counts[path][name])
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=main_path["launches"][name],
+            launches=launches, launches_in=path,
             max_abs_err=rep["max_abs_err"], ms=rep["ms"],
             plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
-            bound_by=rep["bound_by"], library_ms=None, shape=rep["shape"]))
+            bound_by=rep["bound_by"], library_ms=rep.get("library_ms"),
+            shape=rep["shape"]))
+    read = report["topk_select read"]
+    print("[kernels] topk_select at the read shape: " + json.dumps(read))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

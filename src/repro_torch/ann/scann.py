@@ -14,9 +14,10 @@ and per-partition free lists, so the slot and slab layout depend only on
 the operation sequence.
 
 Every ``lax.top_k`` of the reference is a stable descending sort here
-(``kernels.ref.topk_ref``): ties go to the lowest index, as they do there.
-Only the default shortlist path is ported: ``fused=False`` and
-``pq_int8=True`` raise ``NotImplementedError``.
+(``kernels.ref.topk_ref``) or the ``topk_select`` kernel: ties go to the
+lowest index, as they do there. The reference's ``use_kernels`` switch
+has no counterpart: the device decides (kernels on the card, their plain
+versions on the CPU).
 """
 from __future__ import annotations
 
@@ -34,6 +35,10 @@ from repro_torch.kernels.ref import topk_ref
 from repro_torch.utils.device import resolve
 
 
+# queries per _query_step call (see ScannIndex.search)
+SEARCH_CHUNK = 1024
+
+
 @dataclasses.dataclass(frozen=True)
 class ScannConfig:
     d_proj: int = 64            # CountSketch dimension
@@ -46,8 +51,8 @@ class ScannConfig:
     soar_lambda: float = 1.0    # SOAR orthogonality weight (<0 disables SOAR)
     kmeans_iters: int = 12
     pq_iters: int = 8
-    fused: bool = True          # the fused shortlist (False: not ported)
-    pq_int8: bool = False       # int8 LUT shortlist (True: not ported)
+    fused: bool = True          # one fused shortlist kernel (False: composed)
+    pq_int8: bool = False       # quantized int8 LUT scoring in the shortlist
     seed: int = 13
 
     @property
@@ -57,12 +62,19 @@ class ScannConfig:
 
 def _query_step(q_idx, q_val, q_sketch, centroids, books, members,
                 codes_list, valid_list, sp_idx, sp_val, *, nprobe: int,
-                reorder: int, k: int):
+                reorder: int, k: int, fused: bool = True,
+                pq_int8: bool = False):
     """Batched query: returns (slots [B,k], dists [B,k]); empty = -1/+inf.
 
+    ``fused`` takes the shortlist (PQ LUT scores, SOAR dedup, top-r) in one
+    kernel; ``fused=False`` composes the same stages from the pq-score
+    kernel, the top-k selection and the dedup mask, bitwise the same by
+    the fused shortlist's contract. ``pq_int8`` scores the shortlist from
+    a symmetric int8 table.
+
     SOAR dedup happens at the shortlist cut: both copies of a point carry
-    the same slot number, so the fused kernel neutralises the lower-ranked
-    copy to -inf and the exact rescore sees each slot once.
+    the same slot number, so the lower-ranked copy becomes -inf and the
+    exact rescore sees each slot once.
     """
     b = q_idx.shape[0]
     s = members.shape[1]
@@ -79,8 +91,16 @@ def _query_step(q_idx, q_val, q_sketch, centroids, books, members,
     flat_valid = valid_list[top_parts].reshape(b, -1) & (flat_slots >= 0)
     bias = top_ps.repeat_interleave(s, dim=-1)                      # + q . c_p
     r = min(reorder, flat_slots.shape[-1])
-    short_scores, short_pos = ops.pq_score_dedup_topk(
-        lut, flat_codes, flat_slots, r, valid=flat_valid, bias=bias)
+    if fused:
+        short_scores, short_pos = ops.pq_score_dedup_topk(
+            lut, flat_codes, flat_slots, r, valid=flat_valid, bias=bias,
+            quantized=pq_int8)
+    else:
+        approx = ops.pq_scores(lut, flat_codes, quantized=pq_int8)
+        approx = torch.where(flat_valid, approx + bias, float("-inf"))
+        short_scores, short_pos = ops.topk_select(approx, r)
+        short_scores = ops.dedup_mask(short_scores, short_pos, flat_slots,
+                                      flat_valid)
     short_slots = torch.gather(flat_slots, 1, short_pos.long())
     # -inf = invalid or duplicate SOAR copy; both drop out of the rescore
     short_slots = torch.where(torch.isfinite(short_scores), short_slots, -1)
@@ -100,14 +120,6 @@ class ScannIndex:
     """Dynamic quantized index over sparse embeddings."""
 
     def __init__(self, k_dims: int, cfg: ScannConfig, device=None):
-        if not cfg.fused:
-            raise NotImplementedError(
-                "ScannConfig(fused=False) needs the pq_score and "
-                "topk_select kernels, which are not ported yet")
-        if cfg.pq_int8:
-            raise NotImplementedError(
-                "ScannConfig(pq_int8=True) needs the int8 fused shortlist "
-                "kernel (fused_query_kernel_int8), which is not ported yet")
         self.k_dims = k_dims
         self.cfg = cfg
         self.device = resolve(device)
@@ -318,16 +330,26 @@ class ScannIndex:
     # ------------------------------------------------------------- queries
 
     def search(self, emb: SparseBatch, k: int):
-        """Top-k (ids [B,k], dists [B,k]); padding id=-1, dist=+inf."""
+        """Top-k (ids [B,k], dists [B,k]); padding id=-1, dist=+inf.
+
+        Batches above ``SEARCH_CHUNK`` queries run in chunks of that many:
+        each query gathers nprobe x slab candidates (about 0.6 MB at the
+        arxiv-scale layout), so a graph repair flush of tens of thousands
+        of ids would otherwise need tens of GB. Rows are independent."""
         cfg = self.cfg
         sk = count_sketch(emb, cfg.d_proj, cfg.seed)
-        slots, dists = _query_step(
-            emb.indices, emb.values, sk, self.centroids, self.books,
-            self.members, self.codes_list, self.valid_list,
-            self.sp_idx, self.sp_val,
-            nprobe=min(cfg.nprobe, cfg.n_partitions), reorder=cfg.reorder,
-            k=min(k, cfg.reorder))
-        slots, dists = slots.cpu().numpy(), dists.cpu().numpy()
+        parts = []
+        for lo in range(0, max(emb.batch, 1), SEARCH_CHUNK):
+            hi = lo + SEARCH_CHUNK
+            parts.append(_query_step(
+                emb.indices[lo:hi], emb.values[lo:hi], sk[lo:hi],
+                self.centroids, self.books, self.members, self.codes_list,
+                self.valid_list, self.sp_idx, self.sp_val,
+                nprobe=min(cfg.nprobe, cfg.n_partitions),
+                reorder=cfg.reorder, k=min(k, cfg.reorder), fused=cfg.fused,
+                pq_int8=cfg.pq_int8))
+        slots = torch.cat([p[0] for p in parts]).cpu().numpy()
+        dists = torch.cat([p[1] for p in parts]).cpu().numpy()
         ids = np.where(slots >= 0, self.ids[np.maximum(slots, 0)], -1)
         if k > ids.shape[1]:
             pad = ((0, 0), (0, k - ids.shape[1]))

@@ -18,8 +18,15 @@ module sees only numpy arrays and plain numbers:
         "centroids": f32 [C, d], "books": f32 [M, 256, d/M],
         "capacity": int, "slab": int,
     }
+
+``graph_state`` takes the reference's ``DynamicGraphStore.snapshot_state()``
+(numpy arrays, id maps, and its ``GraphConfig``, read by field name) and
+builds the port's store at that state, so a test can continue one stream
+from one adjacency in both packages.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -27,6 +34,8 @@ import torch
 from repro_torch.ann.brute import BruteIndex
 from repro_torch.ann.scann import ScannIndex
 from repro_torch.core.idf import FilterTable, IdfTable
+from repro_torch.core.maintenance import MaintenanceConfig
+from repro_torch.graph.store import DynamicGraphStore, GraphConfig
 from repro_torch.utils.device import resolve
 
 
@@ -57,7 +66,8 @@ def load_bootstrapped(gus, state: dict, ids: np.ndarray, features: dict) -> None
     """``DynamicGUS.bootstrap`` with the reference's trained state: install
     its hyperplanes, tables and scorer, create the index from its trained
     structures at its layout, then load the corpus through the mutation
-    path (as the reference's ``build`` does after training)."""
+    path (as the reference's ``build`` does after training) and seed the
+    maintained graph, if one is configured, as ``bootstrap`` does."""
     dev = gus.device
     gus.embedder = gus.embedder.reload(idf=idf_table(state["idf"], dev),
                                        filter_table=filter_table(
@@ -75,3 +85,18 @@ def load_bootstrapped(gus, state: dict, ids: np.ndarray, features: dict) -> None
     gus.store.clear()
     gus.index.upsert(np.asarray(ids), gus.embedder(features))
     gus.store.put(ids, features)
+    gus.seed_graph(ids)
+
+
+def graph_state(state: dict, device=None) -> DynamicGraphStore:
+    """A port ``DynamicGraphStore`` restored from the reference's
+    ``snapshot_state()``; its ``GraphConfig`` is read field by field."""
+    ref = state["cfg"]
+    maint = MaintenanceConfig(**{f.name: getattr(ref.maintenance, f.name)
+                                 for f in dataclasses.fields(
+                                     MaintenanceConfig)})
+    cfg = GraphConfig(k=ref.k, width=ref.width, capacity=ref.capacity,
+                      probe=ref.probe, maintenance=maint)
+    store = DynamicGraphStore(cfg, device)
+    store.restore_state(dict(state, cfg=cfg))
+    return store

@@ -1,13 +1,17 @@
 """Dynamic GUS (port of ``repro/core/gus.py``, paper §3): Embedding
 Generator + ScaNN-style index + Similarity Scorer behind the two RPC
-surfaces, mutations and neighborhoods, plus the offline bootstrap.
+surfaces, mutations and neighborhoods, plus the offline bootstrap and the
+maintained graph (``GusConfig.graph``): every mutation RPC updates the
+graph, and ``neighbors_of_ids`` at k <= the graph's k serves straight
+from its rows.
 
-This slice ports the default path: backend ``"scann"`` (or the exact
-``"brute"``), no maintained graph, no multi-modal plane, no sharding. The
-neighborhood RPC's pair scores go through the scorer kernel on the card.
-Per-RPC wall-clock timers mirror the paper's Figs. 9-10; results are
-copied to the host inside the timed block, so each sample covers the
-device work.
+Backends ``"scann"`` and the exact ``"brute"``; the multi-modal plane,
+the sharded backend and the serving plane's pipeline and maintenance
+worker are not ported. The neighborhood RPC's pair scores go through the
+scorer kernel on the card. Per-RPC wall-clock timers mirror the paper's
+Figs. 9-10; results are copied to the host inside the timed block, so
+each sample covers the device work; graph maintenance is billed to
+``graph_timer``.
 """
 from __future__ import annotations
 
@@ -21,9 +25,11 @@ from repro_torch.ann.scann import ScannConfig, ScannIndex
 from repro_torch.core import idf as idf_mod
 from repro_torch.core.buckets import BucketConfig
 from repro_torch.core.embedding import EmbeddingGenerator
+from repro_torch.core.maintenance import MaintenanceConfig
 from repro_torch.core.scorer import score_pairs
 from repro_torch.core.types import (FeatureSpec, MutationBatch, NeighborResult,
                                     MUTATION_DELETE)
+from repro_torch.graph.store import DynamicGraphStore, GraphConfig
 from repro_torch.utils.device import resolve
 from repro_torch.utils.timing import Timer
 
@@ -47,6 +53,9 @@ class GusConfig:
     filter_percent: float = 0.0  # Filter-P: % of most popular buckets dropped
     backend: str = "scann"       # "scann" | "brute"
     scann: ScannConfig = ScannConfig()
+    # maintained-graph layer (repro_torch.graph): None disables maintenance;
+    # its `maintenance.staleness_bound > 0` serves published versions
+    graph: GraphConfig | None = None
 
 
 def make_index(k_dims: int, cfg: GusConfig, device):
@@ -104,21 +113,31 @@ class DynamicGUS:
         self.device = resolve(device)
         self.spec = spec
         self.cfg = cfg
+        self.maintenance = (cfg.graph.maintenance if cfg.graph is not None
+                            else MaintenanceConfig())
         self.embedder = EmbeddingGenerator.create(spec, bucket_cfg,
                                                   self.device)
         self.scorer_params = {k: v.to(self.device)
                               for k, v in scorer_params.items()}
         self.store = FeatureStore(spec)
         self.index = make_index(self.embedder.k_max, cfg, self.device)
+        self.graph = (DynamicGraphStore(cfg.graph, self.device)
+                      if cfg.graph else None)
+        # applied mutation batches: published graph versions are stamped
+        # against this count
+        self.seq_applied = 0
         self.mutation_timer = Timer("mutation")
         self.query_timer = Timer("neighbors")
+        self.graph_timer = Timer("graph")
 
     # ----------------------------------------------------- offline (§4.3)
 
-    def bootstrap(self, ids: np.ndarray,
-                  features: Mapping[str, np.ndarray]) -> None:
+    def bootstrap(self, ids: np.ndarray, features: Mapping[str, np.ndarray]
+                  ) -> None:
         """Offline preprocessing: compute IDF/filter tables from the initial
-        corpus, (re)build the index, and load all points."""
+        corpus, (re)build the index, and load all points. The maintained
+        graph (if configured) is seeded from full-corpus neighborhoods in
+        chunks of 256 ids, then its repair queue is drained."""
         bucket_ids, valid = self.embedder.buckets(features)
         bucket_ids = bucket_ids.cpu().numpy()
         valid = valid.cpu().numpy()
@@ -130,16 +149,43 @@ class DynamicGUS:
                 bucket_ids, valid, self.cfg.filter_percent, self.device))
         self.index.build(np.asarray(ids), self.embedder(features))
         self.store.put(ids, features)
+        self.seed_graph(ids)
+
+    def seed_graph(self, ids: np.ndarray) -> None:
+        """Start a fresh maintained graph over the loaded corpus ``ids``:
+        their neighborhoods in chunks of 256, then a repair flush."""
+        if self.graph is not None:
+            self.graph = DynamicGraphStore(self.cfg.graph, self.device)
+            with self.graph_timer:
+                self.graph.ensure_ids(np.asarray(ids))
+                for lo in range(0, len(ids), 256):
+                    chunk = np.asarray(ids[lo:lo + 256])
+                    self.graph.upsert(chunk, self._index_neighbors_of_ids(
+                        chunk, self.graph.cfg.probe_k(), timed=False))
+                self.flush_graph_repair(limit=len(ids))
+            if self.maintenance.staleness_bound > 0:
+                self.graph.publish(seq=self.seq_applied)
 
     # ------------------------------------------------------ mutation RPCs
 
     def mutate(self, batch: MutationBatch) -> int:
         """Insert / update / delete a batch of points (paper §3.3.1-.2).
-        Returns the number of points acknowledged."""
+        Returns the number of points acknowledged. With a maintained graph,
+        every mutation also updates it (timed apart in ``graph_timer``):
+        deletes tombstone the row and purge back-edges; upserts re-query
+        the point's scored neighborhood and apply two-sided edge updates;
+        then one repair drain."""
         with self.mutation_timer:
             staged = self.encode_mutation(batch)
             self.apply_mutation(staged)
             self.finish_mutation(staged)
+        self.seq_applied += 1
+        if self.graph is not None:
+            with self.graph_timer:
+                self.graph_apply(staged)
+                self.flush_graph_repair()
+            if self.maintenance.staleness_bound > 0:
+                self.graph.publish(seq=self.seq_applied)
         return staged.n
 
     def encode_mutation(self, batch: MutationBatch) -> StagedMutation:
@@ -177,6 +223,32 @@ class DynamicGUS:
         if staged.up_ids is not None:
             self.index.finish_upsert(staged.pending)
 
+    def graph_apply(self, staged: StagedMutation) -> None:
+        """Maintained-graph update for an applied batch."""
+        if self.graph is None:
+            return
+        if staged.dels is not None:
+            self.graph.delete(staged.dels)
+        if staged.up_ids is not None:
+            res = self._index_neighbors_of_ids(
+                staged.up_ids, self.graph.cfg.probe_k(), timed=False)
+            self.graph.upsert(staged.up_ids, res)
+
+    def flush_graph_repair(self, limit: int | None = None) -> int:
+        """Drain the graph's repair queue: rows left under-full by deletes
+        or evictions get a fresh neighborhood merged in (no purge: their
+        embeddings did not change). One batched re-query per drain, capped
+        at ``limit`` (default ``MaintenanceConfig.repair_per_tick``)."""
+        if self.graph is None:
+            return 0
+        rep = self.graph.take_repair_ids(limit)
+        if rep.size:
+            self.graph.upsert(
+                rep, self._index_neighbors_of_ids(
+                    rep, self.graph.cfg.probe_k(), timed=False),
+                purge=False)
+        return int(rep.size)
+
     # --------------------------------------------------- neighborhood RPC
 
     def neighbors(self, features: Mapping[str, np.ndarray],
@@ -207,9 +279,37 @@ class DynamicGUS:
 
     def neighbors_of_ids(self, ids: np.ndarray, k: int | None = None
                          ) -> NeighborResult:
-        """Neighborhood of existing points (self-match excluded)."""
+        """Neighborhood of existing points (self-match excluded).
+
+        With a maintained graph, requests at k <= the graph's k are served
+        straight from the graph rows: no re-embedding, no ANN search. With
+        ``staleness_bound > 0`` the read goes through the published
+        `GraphView`, which lags the applied stream by at most that many
+        batches; ids the graph (or view) does not know yet take the
+        embed -> search -> score path."""
         ids = np.asarray(ids)
-        return self.neighbors(self.store.gather(ids), k, exclude_ids=ids)
+        k = k or self.cfg.scann_nn
+        if self.graph is not None and k <= self.graph.cfg.k:
+            if self.maintenance.staleness_bound > 0:
+                view = self.graph.view()
+                if view.has_ids(ids):
+                    with self.query_timer:
+                        return view.neighbors_of_ids(ids, k)
+            elif self.graph.has_ids(ids):
+                with self.query_timer:
+                    return self.graph.neighbors_of_ids(ids, k)
+        return self._index_neighbors_of_ids(ids, k)
+
+    def _index_neighbors_of_ids(self, ids: np.ndarray, k: int | None = None,
+                                timed: bool = True) -> NeighborResult:
+        """The embed -> search -> score path, bypassing the graph (graph
+        maintenance uses it with ``timed=False``, so its re-queries are
+        billed to ``graph_timer``, not to the query timer)."""
+        ids = np.asarray(ids)
+        feats = self.store.gather(ids)
+        if timed:
+            return self.neighbors(feats, k, exclude_ids=ids)
+        return self._neighbors_impl(feats, k, exclude_ids=ids)
 
 
 def _drop_self(ids, dists, self_ids, k):

@@ -1,4 +1,6 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
-version: ``fused_query`` (PQ shortlist), ``sparse_dot`` (exact rescore and
-brute force) and ``scorer_mlp`` (pair scorer). ``ops`` holds the entry
-points; ``_build`` compiles ``csrc/`` on first use."""
+version: ``fused_query`` (PQ shortlist, f32 and int8 table),
+``sparse_dot`` (exact rescore and brute force), ``scorer_mlp`` (pair
+scorer), ``topk_select`` (graph merges and reads) and ``pq_score`` (the
+unfused shortlist's table scoring). ``ops`` holds the entry points;
+``_build`` compiles ``csrc/`` on first use."""

@@ -24,7 +24,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("fused_query", "sparse_dot", "scorer_mlp")
+SOURCES = ("fused_query", "sparse_dot", "scorer_mlp", "topk_select",
+           "pq_score")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -111,6 +112,14 @@ def check(code: int, lib_name: str, what: str) -> None:
     if code != 0:
         msg = library(lib_name).error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def device_kind(t: torch.Tensor, what: str) -> str:
+    """"cuda" (launch the kernel) or "cpu" (run the plain version); any
+    other device has no kernel and raises."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {what} kernel for device {t.device}")
+    return t.device.type
 
 
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:

@@ -1,6 +1,6 @@
 """Inputs that hold each kernel against its plain version: seeded numpy
 arrays at a given shape, plus the fused shortlist's edge cases (those of
-``tests/test_kernels_fused.py``). ``tests/test_torch_kernels_cuda.py`` and
+``tests/test_kernels_fused.py``) and the top-k selection's. ``tests/test_torch_kernels_cuda.py`` and
 ``chip_smoke.py`` both draw from here, so the cases live in one place.
 """
 from __future__ import annotations
@@ -64,3 +64,28 @@ def scorer_inputs(rng, b: int, f: int, h: int) -> list:
     """feats [B,F] and the weights w0 b0 w1 b1 w2 b2 of an F-H-H-1 MLP."""
     shapes = [(b, f), (f, h), (h,), (h, h), (h,), (h, 1), (1,)]
     return [rng.normal(size=s).astype(np.float32) for s in shapes]
+
+
+def topk_inputs(rng, b: int, n: int, ties: bool = False) -> np.ndarray:
+    """scores f32 [B, N] as the graph gives them: edge weights in (0, 1)
+    with -inf holes (empty or purged entries); ``ties`` draws them from few
+    values, and then the first two rows are all -inf."""
+    if ties:
+        scores = rng.choice(np.asarray([0.25, 0.5, 0.75], np.float32), (b, n))
+    else:
+        scores = rng.random((b, n)).astype(np.float32)
+    scores[rng.random((b, n)) < 0.3] = -np.inf
+    if ties:
+        scores[:2] = -np.inf
+    return scores
+
+
+def topk_edge_cases(rng) -> list:
+    """(name, scores, k) for ties with all -inf rows at both graph shapes,
+    k = N, k = 1, and a row long enough that its alive bits need global
+    scratch."""
+    return [("merge ties", topk_inputs(rng, 1024, 128, ties=True), 64),
+            ("read ties", topk_inputs(rng, 16, 64, ties=True), 8),
+            ("k=N", topk_inputs(rng, 7, 64, ties=True), 64),
+            ("k=1", topk_inputs(rng, 3, 1000), 1),
+            ("scratch", topk_inputs(rng, 2, 2_000_000), 3)]

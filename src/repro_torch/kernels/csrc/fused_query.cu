@@ -1,12 +1,17 @@
 // Fused query shortlist: ordered PQ-LUT scoring, lowest-index top-k and
 // SOAR dedup-after-cut, in one kernel.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/fused_query.py::
-// fused_query_kernel (body _fused_kernel, _score_rows_f32, _select_dedup).
+// Replaces two Pallas TPU kernels of src/repro/kernels/fused_query.py:
+//   fused_query_kernel (body _fused_kernel, _score_rows_f32, _select_dedup)
+//   and fused_query_kernel_int8 (body _fused_kernel_int8, _score_rows_int8),
+// as the two instances of one template.
 //
 // Contract (bitwise, pinned by the plain version in fused_query.py):
 //   score[i] = valid[i] ? (((0 + lut[0][c0]) + lut[1][c1]) + ... ) + bias[i]
 //                       : -inf               (subspaces summed in order)
+//   (int8: lut[m][c] = qlut[m][c] * scale[m], one rounded product per
+//   table entry while the table is staged, so the scale multiply stays out
+//   of the sum and nothing can be contracted into an FMA)
 //   k rounds of (max, lowest index) over an alive mask, so equal scores
 //   (-inf included) resolve to the lowest candidate index and a row of all
 //   -inf yields 0..k-1; the value of round i becomes -inf when an earlier
@@ -45,8 +50,10 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return i != INT_MAX && (bi == INT_MAX || v > bv || (v == bv && i < bi));
 }
 
+template <bool kInt8>
 __global__ void __launch_bounds__(kThreads)
-fused_query_kernel(const float* __restrict__ lut,
+fused_query_kernel(const void* __restrict__ lut,
+                   const float* __restrict__ scale,
                    const uint8_t* __restrict__ codes,
                    const int* __restrict__ ids,
                    const uint8_t* __restrict__ valid,
@@ -77,8 +84,15 @@ fused_query_kernel(const float* __restrict__ lut,
     alive = reinterpret_cast<unsigned*>(scores + N);        // words
   }
 
-  const float* lut_row = lut + (size_t)row * M * C;
-  for (int i = tid; i < M * C; i += kThreads) lut_s[i] = lut_row[i];
+  if (kInt8) {
+    const int8_t* q_row = static_cast<const int8_t*>(lut) + (size_t)row * M * C;
+    const float* scale_row = scale + (size_t)row * M;
+    for (int i = tid; i < M * C; i += kThreads)
+      lut_s[i] = __fmul_rn(static_cast<float>(q_row[i]), scale_row[i / C]);
+  } else {
+    const float* lut_row = static_cast<const float*>(lut) + (size_t)row * M * C;
+    for (int i = tid; i < M * C; i += kThreads) lut_s[i] = lut_row[i];
+  }
   for (int w = tid; w < words; w += kThreads) {
     const int left = N - 32 * w;
     alive[w] = left >= 32 ? 0xFFFFFFFFu : ((1u << left) - 1u);
@@ -148,6 +162,32 @@ int optin_limit() {
   return limit;
 }
 
+template <bool kInt8>
+int launch(const void* lut, const void* scale, const void* codes,
+           const void* ids, const void* valid, const void* bias, void* vals,
+           void* idxs, void* scratch_scores, void* scratch_alive, int B, int N,
+           int M, int C, int k, void* stream) {
+  const size_t smem = scratch_scores != nullptr
+                          ? fixed_smem_bytes(M, C, k)
+                          : onchip_smem_bytes(N, M, C, k);
+  if (smem > (size_t)optin_limit()) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_query_kernel<kInt8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  fused_query_kernel<kInt8>
+      <<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          lut, static_cast<const float*>(scale),
+          static_cast<const uint8_t*>(codes), static_cast<const int*>(ids),
+          static_cast<const uint8_t*>(valid), static_cast<const float*>(bias),
+          static_cast<float*>(vals), static_cast<int*>(idxs),
+          static_cast<float*>(scratch_scores),
+          static_cast<unsigned*>(scratch_alive), N, M, C, k);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* error_string(int code) {
@@ -166,21 +206,18 @@ extern "C" int fused_query_launch(const void* lut, const void* codes,
                                   void* scratch_scores, void* scratch_alive,
                                   int B, int N, int M, int C, int k,
                                   void* stream) {
-  const size_t smem = scratch_scores != nullptr
-                          ? fixed_smem_bytes(M, C, k)
-                          : onchip_smem_bytes(N, M, C, k);
-  if (smem > (size_t)optin_limit()) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  fused_query_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(lut), static_cast<const uint8_t*>(codes),
-      static_cast<const int*>(ids), static_cast<const uint8_t*>(valid),
-      static_cast<const float*>(bias), static_cast<float*>(vals),
-      static_cast<int*>(idxs), static_cast<float*>(scratch_scores),
-      static_cast<unsigned*>(scratch_alive), N, M, C, k);
-  return (int)cudaGetLastError();
+  return launch<false>(lut, nullptr, codes, ids, valid, bias, vals, idxs,
+                       scratch_scores, scratch_alive, B, N, M, C, k, stream);
+}
+
+// qlut i8 [B, M, C] and scale f32 [B, M] in place of the f32 table.
+extern "C" int fused_query_int8_launch(const void* qlut, const void* scale,
+                                       const void* codes, const void* ids,
+                                       const void* valid, const void* bias,
+                                       void* vals, void* idxs,
+                                       void* scratch_scores,
+                                       void* scratch_alive, int B, int N,
+                                       int M, int C, int k, void* stream) {
+  return launch<true>(qlut, scale, codes, ids, valid, bias, vals, idxs,
+                      scratch_scores, scratch_alive, B, N, M, C, k, stream);
 }

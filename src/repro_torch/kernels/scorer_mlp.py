@@ -33,10 +33,8 @@ def scorer_mlp(feats, w0, b0, w1, b1, w2, b2) -> torch.Tensor:
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    if feats.device.type == "cpu":
+    if _build.device_kind(feats, "scorer_mlp") == "cpu":
         return scorer_mlp_plain(feats, w0, b0, w1, b1, w2, b2)
-    if feats.device.type != "cuda":
-        raise ValueError(f"no scorer_mlp kernel for device {feats.device}")
     args = [feats] + [t for t, _ in shapes.values()]
     for t in args:
         if t.dtype != torch.float32 or t.device != feats.device:

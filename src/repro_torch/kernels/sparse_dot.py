@@ -62,17 +62,11 @@ def _launch(q_idx, q_val, db_idx, db_val, rows: int, batch_rows: int,
     return out
 
 
-def _device_kind(t: torch.Tensor, what: str) -> str:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no {what} kernel for device {t.device}")
-    return t.device.type
-
-
 def sparse_dot_batched(q_idx, q_val, db_idx, db_val) -> torch.Tensor:
     """Shortlist rescore: q [B, Kq] vs db [B, R, Kd] -> f32 [B, R]."""
     if db_idx.dim() != 3 or db_idx.shape[0] != q_idx.shape[0]:
         raise ValueError(f"db must be [B, R, Kd], got {tuple(db_idx.shape)}")
-    if _device_kind(q_idx, "sparse_dot_batched") == "cpu":
+    if _build.device_kind(q_idx, "sparse_dot_batched") == "cpu":
         return sparse_dot_plain(q_idx, q_val, db_idx, db_val)
     r = db_idx.shape[1]
     out = _launch(q_idx, q_val, db_idx, db_val, r, r, "sparse_dot_batched")
@@ -84,7 +78,7 @@ def sparse_dot(q_idx, q_val, db_idx, db_val) -> torch.Tensor:
     """Shared db (brute force): q [B, Kq] vs db [N, Kd] -> f32 [B, N]."""
     if db_idx.dim() != 2:
         raise ValueError(f"db must be [N, Kd], got {tuple(db_idx.shape)}")
-    if _device_kind(q_idx, "sparse_dot") == "cpu":
+    if _build.device_kind(q_idx, "sparse_dot") == "cpu":
         return sparse_dot_plain(q_idx, q_val, db_idx, db_val)
     out = _launch(q_idx, q_val, db_idx, db_val, db_idx.shape[0], 0,
                   "sparse_dot")

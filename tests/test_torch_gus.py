@@ -86,8 +86,10 @@ def _scorer_arrays(seed: int = 0) -> dict:
     return out
 
 
-def _pair(backend: str, idf_size: int = 0, filter_percent: float = 0.0):
-    """A reference engine and a port engine bootstrapped to one state."""
+def _pair(backend: str, idf_size: int = 0, filter_percent: float = 0.0,
+          graph: tuple = (None, None)):
+    """A reference engine and a port engine bootstrapped to one state;
+    ``graph`` holds the two packages' GraphConfig (None: no graph)."""
     jstream = JStream(J_DATA, JStreamConfig(batch_size=15, seed=5), 0.6)
     tstream = MutationStream(DATA, StreamConfig(batch_size=15, seed=5), 0.6)
     scorer = _scorer_arrays()
@@ -96,11 +98,12 @@ def _pair(backend: str, idf_size: int = 0, filter_percent: float = 0.0):
     jg = JDynamicGUS(J_DATA.spec, JBucketConfig(**BUCKETS),
                      {k: jnp.asarray(v) for k, v in scorer.items()},
                      JGusConfig(scann=JScannConfig(**SCANN, **TRAIN_FAST),
-                                **kw))
+                                graph=graph[0], **kw))
     jg.bootstrap(*jstream.bootstrap())
     tg = DynamicGUS(DATA.spec, BucketConfig(**BUCKETS),
                     convert.scorer_params(scorer, "cpu"),
-                    GusConfig(scann=ScannConfig(**SCANN, **TRAIN_FAST), **kw),
+                    GusConfig(scann=ScannConfig(**SCANN, **TRAIN_FAST),
+                              graph=graph[1], **kw),
                     device="cpu")
     convert.load_bootstrapped(tg, _reference_state(jg), *tstream.bootstrap())
     return jg, tg, jstream, tstream
@@ -213,9 +216,10 @@ def test_card_is_the_default_device():
 
 
 def test_unported_paths_raise():
+    """The sharded backend is not ported; every scann shortlist
+    configuration is (the name is kept from when two of them raised)."""
     for cfg in (ScannConfig(fused=False), ScannConfig(pq_int8=True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ScannIndex(9, cfg, device="cpu")
+        assert ScannIndex(9, cfg, device="cpu").cfg == cfg
     with pytest.raises(ValueError, match="unknown GUS backend"):
         DynamicGUS(DATA.spec, BucketConfig(), {},
                    GusConfig(backend="sharded"), device="cpu")
@@ -235,7 +239,7 @@ bad = sorted(m for m, mod in list(sys.modules.items()) if mod is not None
              and (m in ("jax", "repro")
                   or m.startswith(("jax.", "jaxlib", "repro."))))
 assert not bad, bad
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -247,4 +251,9 @@ def test_port_imports_no_jax_and_no_reference():
                           str(ROOT / "chip_smoke.py")],
                          capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    names = set(out.stdout.split())
+    assert len(names) >= 37
+    assert {f"repro_torch.{m}" for m in (
+        "graph", "graph.store", "graph.cc", "core.graph", "core.grale",
+        "core.maintenance", "kernels.topk_select", "kernels.pq_score")} \
+        <= names

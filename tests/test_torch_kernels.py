@@ -20,7 +20,7 @@ from repro.kernels.fused_query import fused_query_xla
 from repro.kernels.sparse_dot import sparse_dot as j_sparse_dot
 from repro.kernels.sparse_dot import sparse_dot_batched as j_sparse_dot_batched
 from repro_torch.core.scorer import scorer_apply
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import fused_query, ops, ref
 
 assert jax.default_backend() == "cpu"
 
@@ -134,9 +134,23 @@ def test_fused_plain_edge_cases():
 
 
 def test_fused_plain_rejects_unported_int8():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ops.pq_score_dedup_topk(torch.zeros(1, 1, 2), torch.zeros(
-            1, 4, 1, dtype=torch.uint8), torch.zeros(1, 4), 2, quantized=True)
+    """``quantized=True`` runs the int8 shortlist: on a table that int8
+    holds exactly (integers, amax 127, so every scale is 1) it answers
+    bitwise as the f32 shortlist, and the table's dtype is checked. (The
+    name is kept from when the int8 shortlist was not yet ported.)"""
+    rng = np.random.default_rng(9)
+    lut, codes, ids, valid, bias = _fq_random(rng, (3, 160, 4, 24), 20, 0.3)
+    lut = np.round(lut * 20).astype(np.float32)
+    lut[:, :, 0] = 127.0
+    args = [torch.as_tensor(a) for a in (lut, codes, ids)]
+    kw = dict(valid=torch.as_tensor(valid), bias=torch.as_tensor(bias))
+    got = ops.pq_score_dedup_topk(*args, 53, quantized=True, **kw)
+    want = ops.pq_score_dedup_topk(*args, 53, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(TypeError, match="lut must be"):
+        fused_query.fused_query_kernel_int8(
+            args[0], torch.ones(3, 4), args[1], args[2], kw["valid"],
+            kw["bias"], 53)
 
 
 def test_stable_topk_matches_lax_top_k():

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from repro_torch.core.types import PAD_INDEX
-from repro_torch.kernels import cases, fused_query, ops, scorer_mlp, sparse_dot
+from repro_torch.kernels import (cases, fused_query, ops, pq_score,
+                                  scorer_mlp, sparse_dot, topk_select)
 
 pytestmark = pytest.mark.cuda
 
@@ -117,3 +118,74 @@ def test_scorer_mlp_matches_plain(card, b, f, h):
     torch.cuda.synchronize()
     assert scorer_mlp.scorer_mlp.launches == before + 1
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [16384, 32768])
+def test_fused_query_int8_matches_plain_bitwise(card, n):
+    """The int8 shortlist at B=16, M=8, C=256, k=128: N = 16,384 and the
+    main path's 32,768; the table is quantised on the card."""
+    rng = np.random.default_rng(n)
+    case = cases.fused_query_inputs(rng, 16, n, 8, 256, n // 3, 0.3)
+    args = [torch.as_tensor(case[name]).to(card) for name in cases.FQ_ORDER]
+    qlut, scale = ops.quantize_lut(args[0])
+    before = fused_query.fused_query_kernel_int8.launches
+    got = fused_query.fused_query_kernel_int8(qlut, scale, *args[1:], 128)
+    want = fused_query.fused_query_int8_plain(qlut, scale, *args[1:], 128)
+    torch.cuda.synchronize()
+    assert fused_query.fused_query_kernel_int8.launches == before + 1
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("name", ["ties+dups", "all-invalid", "k=n",
+                                  "k=live rows", "uniform"])
+def test_fused_query_int8_edge_cases(card, name):
+    edge = {n: (case, k) for n, case, k in
+            cases.fused_query_edge_cases(np.random.default_rng(7))}
+    case, k = edge[name]
+    args = [torch.as_tensor(case[a]).to(card) for a in cases.FQ_ORDER]
+    qlut, scale = ops.quantize_lut(args[0])
+    got = fused_query.fused_query_kernel_int8(qlut, scale, *args[1:], k)
+    want = fused_query.fused_query_int8_plain(qlut, scale, *args[1:], k)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("name", ["merge ties", "read ties", "k=N", "k=1",
+                                  "scratch"])
+def test_topk_select_matches_plain_bitwise(card, name):
+    """The graph's merge shape (1,024 rows of width + candidates = 128,
+    k = 64) and read shape (16 rows of 64, k = 8) with ties and all -inf
+    rows, k = N, k = 1, and a 2M-entry row (global scratch)."""
+    edge = {n: (s, k) for n, s, k in
+            cases.topk_edge_cases(np.random.default_rng(5))}
+    scores, k = edge[name]
+    scores = torch.as_tensor(scores).to(card)
+    before = topk_select.topk_select.launches
+    got = ops.topk_select(scores, k)
+    want = topk_select.topk_select_plain(scores, k)
+    torch.cuda.synchronize()
+    assert topk_select.topk_select.launches == before + 1
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    if name == "merge ties":
+        assert torch.equal(got[1][0].cpu(), torch.arange(k, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("form,b,n,m,c", [("batched", 16, 32768, 8, 256),
+                                          ("shared", 16, 131072, 8, 256),
+                                          ("batched", 3, 1001, 5, 20)])
+def test_pq_score_matches_plain_bitwise(card, form, b, n, m, c):
+    """The fused=False shortlist's shape (B=16, N=32,768), the shared form
+    at N=131,072, and a ragged N with odd M and C."""
+    case = cases.fused_query_inputs(np.random.default_rng(n), b, n, m, c, 2,
+                                    0.0)
+    lut = torch.as_tensor(case["lut"]).to(card)
+    codes = torch.as_tensor(case["codes"]).to(card)
+    fn = pq_score.pq_score_batched
+    if form == "shared":
+        codes, fn = codes[0].contiguous(), pq_score.pq_score
+    before = fn.launches
+    got = fn(lut, codes)
+    want = pq_score.pq_score_plain(lut, codes)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(got, want)

@@ -27,9 +27,11 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    rebuild at matched k on 1,024 live ids drawn with a fixed seed;
 5. hold every kernel against its plain PyTorch version on the card at the
    shapes the paths reached, plus edge cases (fused_query, its int8
-   instance, topk_select and pq_score bitwise; sparse_dot and scorer_mlp
-   within rtol/atol 1e-6), and time kernel and plain version with CUDA
-   events;
+   instance, topk_select and pq_score bitwise, the signs of zeros
+   included; sparse_dot and scorer_mlp within rtol/atol 1e-6), and time
+   kernel, plain version and, for the top-k, ``torch.topk`` with CUDA
+   events (fused_query also at B=256; the top-k above k = 64 against the
+   stable sort, with the route ``ops.topk_select`` takes there);
 6. print one JSON line with each kernel's numbers, then the result line.
 
 Phases 2-4 each zero the kernel launch counts just before they start and
@@ -84,6 +86,13 @@ def _bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _bitwise(torch, got, want) -> bool:
+    """(values, indices) equal bit for bit, the signs of zeros included."""
+    return (torch.equal(got[1], want[1])
+            and torch.equal(got[0].view(torch.int32),
+                            want[0].view(torch.int32)))
+
+
 def _max_abs_err(got, want) -> float:
     same = got == want               # also covers matching infinities
     return float((got - want).abs().masked_fill(same, 0.0).max())
@@ -94,9 +103,11 @@ def _max_abs_err(got, want) -> float:
 def check_kernels(torch, dev, shapes: dict) -> dict:
     """Phase 5: every kernel against its plain version on the card, at the
     paths' shapes (``shapes``); the fused shortlist (both instances) also
-    at its edge cases, the f32 one at a slab whose scores need global
-    scratch, the top-k selection at its edge cases (the inputs come from
-    ``repro_torch.kernels.cases``, shared with the card tests)."""
+    at its edge cases and the cases that cross its split into chunks, the
+    f32 one at B=256 and at a 65,536-candidate slab, the top-k selection
+    at its edge and split cases, in both of the reference's orders (the
+    inputs come from ``repro_torch.kernels.cases``, shared with the card
+    tests)."""
     from repro_torch.kernels import (cases, fused_query, ops, pq_score,
                                      scorer_mlp, sparse_dot, topk_select)
 
@@ -107,38 +118,47 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
     report = {}
 
     # fused_query: the main path's 16 queries x nprobe * slab candidates,
-    # k = reorder; bitwise everywhere
+    # k = reorder, and 256 queries (graph seeding, the repair drain); a
+    # slab of 65,536 (16 chunks), the edge cases and the split cases
+    # (chunks of one slab); bitwise everywhere
     b, n, k = shapes["fq_b"], shapes["fq_n"], shapes["reorder"]
     fq_cases = [("main", cases.fused_query_inputs(rng, b, n, 8, 256, n // 2,
                                                   0.1), k),
-                ("scratch", cases.fused_query_inputs(rng, 4, 65536, 8, 256,
-                                                     30000, 0.1), 128)]
-    for name, inputs, k in fq_cases + cases.fused_query_edge_cases(rng):
+                ("B=256", cases.fused_query_inputs(rng, 256, n, 8, 256,
+                                                   n // 2, 0.1), k),
+                ("long slab", cases.fused_query_inputs(rng, 4, 65536, 8, 256,
+                                                       30000, 0.1), 128)]
+    split = cases.fused_query_split_cases(rng, topk_select.CHUNK)
+    fq_args = {}
+    for name, inputs, k in fq_cases + cases.fused_query_edge_cases(rng) \
+            + split:
         args = on_card([inputs[a] for a in cases.FQ_ORDER])
-        gv, gi = fused_query.fused_query_kernel(*args, k)
-        wv, wi = fused_query.fused_query_plain(*args, k)
+        got = fused_query.fused_query_kernel(*args, k)
+        want = fused_query.fused_query_plain(*args, k)
         torch.cuda.synchronize()
-        if not (torch.equal(gi, wi) and torch.equal(gv, wv)):
+        if not _bitwise(torch, got, want):
             raise AssertionError(f"fused_query differs from its plain "
                                  f"version ({name})")
         print(f"[kernels] fused_query {name}: bitwise equal")
-        if name == "main":
-            main_args, main_k = args, k
-            err = _max_abs_err(gv, wv)
-    b, n, m = main_args[1].shape
-    c = main_args[0].shape[2]
-    # lut f32, per candidate: m code bytes, i32 id, bool valid, f32 bias;
-    # out: f32 + i32 per selected entry
-    bound, by = _bound_ms(
-        b * m * c * 4 + b * n * (m + 4 + 1 + 4) + b * main_k * 8,
-        b * n * (m + 1) + b * n)
-    report["fused_query"] = dict(
-        shape=f"B={b} N={n} M={m} C={c} k={main_k}", max_abs_err=err,
-        ms=_time_ms(lambda: fused_query.fused_query_kernel(*main_args, main_k),
-                    torch),
-        plain_ms=_time_ms(lambda: fused_query.fused_query_plain(
-            *main_args, main_k), torch),
-        bound_ms=bound, bound_by=by)
+        fq_args[name] = (args, k, _max_abs_err(got[0], want[0]))
+    for name in ("main", "B=256"):
+        args, k, err = fq_args[name]
+        b, n, m = args[1].shape
+        c = args[0].shape[2]
+        # lut f32, per candidate: m code bytes, i32 id, bool valid, f32
+        # bias; out: f32 + i32 per selected entry
+        bound, by = _bound_ms(
+            b * m * c * 4 + b * n * (m + 4 + 1 + 4) + b * k * 8,
+            b * n * (m + 1) + b * n)
+        report["fused_query" if name == "main" else
+               f"fused_query {name}"] = dict(
+            shape=f"B={b} N={n} M={m} C={c} k={k}", max_abs_err=err,
+            ms=_time_ms(lambda: fused_query.fused_query_kernel(*args, k),
+                        torch),
+            plain_ms=_time_ms(lambda: fused_query.fused_query_plain(*args, k),
+                              torch),
+            bound_ms=bound, bound_by=by)
+    main_k = fq_args["main"][1]
 
     # sparse_dot (both forms): bitwise at unit weights, rtol/atol 1e-6 with
     # IDF-like weights. A sparse entry is a u32 index and an f32 value: the
@@ -178,14 +198,14 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
 
     # fused_query_int8: the same cases through the int8 table (quantised on
     # the card, as the shortlist does); bitwise everywhere
-    for name, inputs, k in [fq_cases[0]] + cases.fused_query_edge_cases(rng):
+    for name, inputs, k in [fq_cases[0]] + cases.fused_query_edge_cases(rng) \
+            + split:
         args = on_card([inputs[a] for a in cases.FQ_ORDER])
         table = ops.quantize_lut(args[0])
         got = fused_query.fused_query_kernel_int8(*table, *args[1:], k)
         want = fused_query.fused_query_int8_plain(*table, *args[1:], k)
         torch.cuda.synchronize()
-        if not (torch.equal(got[1], want[1]) and torch.equal(got[0],
-                                                             want[0])):
+        if not _bitwise(torch, got, want):
             raise AssertionError(f"fused_query_int8 differs from its plain "
                                  f"version ({name})")
         print(f"[kernels] fused_query_int8 {name}: bitwise equal")
@@ -193,6 +213,7 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
             int8_args, err = (*table, *args[1:]), _max_abs_err(got[0],
                                                                want[0])
     b, n, m = int8_args[2].shape
+    c = int8_args[0].shape[2]
     bound, by = _bound_ms(
         b * m * c * 1 + b * m * 4 + b * n * (m + 4 + 1 + 4) + b * main_k * 8,
         b * m * c + b * n * (m + 1) + b * n)
@@ -204,20 +225,22 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
             *int8_args, main_k), torch),
         bound_ms=bound, bound_by=by)
 
-    # topk_select: the graph's merge and read shapes plus edge cases,
-    # bitwise; torch.topk timed beside it as the library call (its order
-    # at ties is not promised lowest-index-first, so it is no substitute)
+    # topk_select through ops.topk_select (the reference's order for each
+    # k): the graph's merge and read shapes plus edge cases and the split
+    # cases, bitwise with signed zeros; torch.topk timed beside it as the
+    # library call (its order at ties is not promised lowest-index-first,
+    # so it is no substitute)
     b, n, k = shapes["topk_merge"]
     topk_cases = [("merge", cases.topk_inputs(rng, b, n), k),
                   ("read", cases.topk_inputs(rng, *shapes["topk_read"][:2]),
-                   shapes["topk_read"][2])] + cases.topk_edge_cases(rng)
+                   shapes["topk_read"][2])] + cases.topk_edge_cases(rng) \
+        + cases.topk_split_cases(topk_select.CHUNK)
     for name, scores, k in topk_cases:
         scores = torch.as_tensor(scores).to(dev)
-        got = topk_select.topk_select(scores, k)
-        want = topk_select.topk_select_plain(scores, k)
+        got = ops.topk_select(scores, k)
+        want = topk_select.topk_select_plain(scores, k, signed_zeros=k > 64)
         torch.cuda.synchronize()
-        if not (torch.equal(got[1], want[1]) and torch.equal(got[0],
-                                                             want[0])):
+        if not _bitwise(torch, got, want):
             raise AssertionError(f"topk_select differs from its plain "
                                  f"version ({name})")
         print(f"[kernels] topk_select {name} {tuple(scores.shape)} k={k}: "
@@ -228,33 +251,37 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
             report[f"topk_select {name}"] = dict(
                 shape=f"B={b} N={n} k={k}",
                 max_abs_err=_max_abs_err(got[0], want[0]),
-                ms=_time_ms(lambda: topk_select.topk_select(scores, k), torch),
+                ms=_time_ms(lambda: ops.topk_select(scores, k), torch),
                 plain_ms=_time_ms(lambda: topk_select.topk_select_plain(
                     scores, k), torch),
                 library_ms=_time_ms(lambda: torch.topk(scores, k), torch),
                 bound_ms=bound, bound_by=by)
 
-    # above k = 64 ops.topk_select runs the plain stable sort, as the
-    # reference runs lax.top_k there: the kernel timed beside it at the
+    # above k = 64 the reference runs lax.top_k; ops.topk_select runs the
+    # kernel in that order, timed against the plain stable sort at the
     # unfused shortlist's top-reorder and at a GraphConfig(k=10) merge
     # (width 80 + 64 candidates), and held bitwise to it
-    above = {}
+    before = topk_select.topk_select.launches
+    ops.topk_select(torch.zeros((1, 80), device=dev), 70)
+    route = ("kernel" if topk_select.topk_select.launches > before
+             else "stable sort")
+    above = {"ops.topk_select route for k > 64": route}
     for name, (b, n, k) in (("shortlist", (64, 32768, 128)),
                             ("merge k=10", (1024, 144, 80))):
         scores = torch.as_tensor(cases.topk_inputs(rng, b, n)).to(dev)
-        got = topk_select.topk_select(scores, k)
-        want = topk_select.topk_select_plain(scores, k)
+        got = topk_select.topk_select(scores, k, signed_zeros=True)
+        want = topk_select.topk_select_plain(scores, k, signed_zeros=True)
         torch.cuda.synchronize()
-        if not (torch.equal(got[1], want[1]) and torch.equal(got[0],
-                                                             want[0])):
+        if not _bitwise(torch, got, want):
             raise AssertionError(f"topk_select differs from its plain "
                                  f"version above k = 64 ({name})")
         above[name] = dict(
             shape=f"B={b} N={n} k={k}",
-            kernel_ms=_time_ms(lambda: topk_select.topk_select(scores, k),
-                               torch),
-            sort_ms=_time_ms(lambda: topk_select.topk_select_plain(scores, k),
-                             torch))
+            kernel_ms=_time_ms(lambda: topk_select.topk_select(
+                scores, k, signed_zeros=True), torch),
+            sort_ms=_time_ms(lambda: topk_select.topk_select_plain(
+                scores, k, signed_zeros=True), torch),
+            library_ms=_time_ms(lambda: torch.topk(scores, k), torch))
     print("[kernels] topk_select above k = 64, kernel vs its plain version "
           "(stable sort): " + json.dumps(above))
 
@@ -737,8 +764,8 @@ def main() -> int:
             plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
             bound_by=rep["bound_by"], library_ms=rep.get("library_ms"),
             shape=rep["shape"]))
-    read = report["topk_select read"]
-    print("[kernels] topk_select at the read shape: " + json.dumps(read))
+    for extra in ("topk_select read", "fused_query B=256"):
+        print(f"[kernels] {extra}: " + json.dumps(report[extra]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,10 +35,23 @@ def anisotropic_cost(x, c, eta: float):
     return d2 + (eta - 1.0) * par * par
 
 
+def segment_sum(x: torch.Tensor, assign: torch.Tensor,
+                lengths: torch.Tensor) -> torch.Tensor:
+    """Rows of ``x`` summed per id in ``assign`` (``lengths`` = its
+    bincount): [len(lengths), *x.shape[1:]]. Each sum adds its rows in
+    index order (a stable sort by id, then a segmented sum), so on the
+    card the bits repeat from run to run, where ``index_add_``'s float
+    atomics add in the order they land; on the CPU it equals
+    ``index_add_`` bit for bit."""
+    order = torch.argsort(assign, stable=True)
+    return torch.segment_reduce(x[order], "sum", lengths=lengths, axis=0)
+
+
 def _lloyd_step(x, centroids, eta: float):
     assign = anisotropic_cost(x, centroids, eta).argmin(-1)
-    sums = torch.zeros_like(centroids).index_add_(0, assign, x)
-    counts = torch.bincount(assign, minlength=centroids.shape[0])[:, None]
+    counts = torch.bincount(assign, minlength=centroids.shape[0])
+    sums = segment_sum(x, assign, counts)
+    counts = counts[:, None]
     new_c = torch.where(counts > 0, sums / counts.clamp(min=1).to(x.dtype),
                         centroids)
     return new_c, assign

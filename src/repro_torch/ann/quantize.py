@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.ann.partition import sample_rows
+from repro_torch.ann.partition import sample_rows, segment_sum
 
 
 def split_subspaces(x: torch.Tensor, m: int) -> torch.Tensor:
@@ -29,16 +29,16 @@ def _aniso_center_update(x, xhat, assign, centers, eta: float):
     """Exact per-center anisotropic solve in one subspace.
     x, xhat: [N, ds]; assign: [N] center ids; centers: [C, ds]."""
     c, ds = centers.shape
-    n_per = torch.bincount(assign, minlength=c).to(x.dtype)          # [C]
-    sum_x = torch.zeros_like(centers).index_add_(0, assign, x)       # [C, ds]
+    lengths = torch.bincount(assign, minlength=c)
+    n_per = lengths.to(x.dtype)                                      # [C]
+    sum_x = segment_sum(x, assign, lengths)                          # [C, ds]
     if eta == 1.0:
         return torch.where(n_per[:, None] > 0,
                            sum_x / n_per.clamp(min=1.0)[:, None], centers)
     outer = xhat[:, :, None] * xhat[:, None, :]                      # [N, ds, ds]
-    A = torch.zeros((c, ds, ds), dtype=x.dtype,
-                    device=x.device).index_add_(0, assign, outer)
+    A = segment_sum(outer, assign, lengths)                          # [C, ds, ds]
     proj = (xhat * x).sum(-1)                                        # [N]
-    b2 = torch.zeros_like(centers).index_add_(0, assign, xhat * proj[:, None])
+    b2 = segment_sum(xhat * proj[:, None], assign, lengths)
     eye = torch.eye(ds, dtype=x.dtype, device=x.device)
     lhs = n_per[:, None, None] * eye + (eta - 1.0) * A
     rhs = sum_x + (eta - 1.0) * b2

@@ -8,8 +8,9 @@ starts one ``nvcc`` per source, all at once, and waits for them.
 ``--use_fast_math`` is deliberately absent: ``tanhf`` and ``expf`` in the
 scorer must stay accurate.
 
-A library's file name carries a hash of its source and flags, so an
-edited source is rebuilt and a stale library is never loaded.
+A library's file name carries a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and a
+stale library is never loaded.
 """
 from __future__ import annotations
 
@@ -47,6 +48,7 @@ def nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

@@ -82,10 +82,60 @@ def topk_inputs(rng, b: int, n: int, ties: bool = False) -> np.ndarray:
 
 def topk_edge_cases(rng) -> list:
     """(name, scores, k) for ties with all -inf rows at both graph shapes,
-    k = N, k = 1, and a row long enough that its alive bits need global
-    scratch."""
+    k = N, k = 1, a 2M-entry row (489 chunks, merged in one block), and
+    signed-zero ties in both of the reference's orders."""
+    zeros = signed_zero_rows()
     return [("merge ties", topk_inputs(rng, 1024, 128, ties=True), 64),
             ("read ties", topk_inputs(rng, 16, 64, ties=True), 8),
             ("k=N", topk_inputs(rng, 7, 64, ties=True), 64),
             ("k=1", topk_inputs(rng, 3, 1000), 1),
-            ("scratch", topk_inputs(rng, 2, 2_000_000), 3)]
+            ("scratch", topk_inputs(rng, 2, 2_000_000), 3),
+            ("signed zeros k<=64", zeros, 4),
+            ("signed zeros k>64", zeros, 70)]
+
+
+def signed_zero_rows() -> np.ndarray:
+    """f32 [3, 80] rows where -0.0 and +0.0 tie: row 0 holds -0.0 at even
+    and +0.0 at odd indices and 0.5 at index 5; row 1 is -0.0 but for
+    +0.0 at index 3 and -inf at 60..79; row 2 is row 0 reversed."""
+    rows = np.zeros((3, 80), np.float32)
+    rows[0, 0::2] = -0.0
+    rows[0, 5] = 0.5
+    rows[1] = -0.0
+    rows[1, 3] = 0.0
+    rows[1, 60:] = -np.inf
+    rows[2] = rows[0, ::-1]
+    return rows
+
+
+def topk_split_cases(chunk: int) -> list:
+    """(name, scores, k) that cross the split of a long row into chunks of
+    ``chunk``: equal values over eight chunks (expect 0..k-1, ties across
+    chunk boundaries) and a ragged last chunk with signed zeros."""
+    k = min(128, chunk // 2)
+    ragged = np.full((2, 2 * chunk + chunk // 3), -0.0, np.float32)
+    ragged[:, 1::7] = 0.0
+    ragged[0, -3:] = [0.0, 1.0, -1.0]
+    return [("equal values", np.full((2, 8 * chunk), 0.5, np.float32), k),
+            ("ragged zeros", ragged, k)]
+
+
+def fused_query_split_cases(rng, chunk: int) -> list:
+    """(name, inputs, k) that cross the fused shortlist's split into chunks
+    of ``chunk`` candidates: a ragged last chunk, a row shorter than one
+    chunk with k = N, SOAR copies (same id, codes and bias) in different
+    chunks, and all-invalid rows longer than one chunk."""
+    k = min(128, chunk // 2)
+    ragged = fused_query_inputs(rng, 2, 2 * chunk + chunk // 3, 4, 16,
+                                chunk, 0.2, ties=True)
+    n_short = chunk // 2 + 3
+    short = fused_query_inputs(rng, 2, n_short, 4, 16, n_short // 2, 0.3)
+    copies = fused_query_inputs(rng, 2, 3 * chunk, 4, 16, 2, 0.1, ties=True)
+    first = np.arange(3 * chunk) % chunk      # copy j of point i at i + j*chunk
+    copies["codes"] = copies["codes"][:, first]
+    copies["bias"] = copies["bias"][:, first]
+    copies["ids"] = np.tile(first.astype(np.int32), (2, 1))
+    dead = fused_query_inputs(rng, 2, 2 * chunk + 5, 4, 16, 7, 1.0)
+    return [("ragged chunk", ragged, k), ("short row k=N", short, n_short),
+            ("copies across chunks", copies, k),
+            ("all-invalid long", dead, k)]

@@ -1,5 +1,5 @@
 // Fused query shortlist: ordered PQ-LUT scoring, lowest-index top-k and
-// SOAR dedup-after-cut, in one kernel.
+// SOAR dedup-after-cut.
 //
 // Replaces two Pallas TPU kernels of src/repro/kernels/fused_query.py:
 //   fused_query_kernel (body _fused_kernel, _score_rows_f32, _select_dedup)
@@ -12,77 +12,101 @@
 //   (int8: lut[m][c] = qlut[m][c] * scale[m], one rounded product per
 //   table entry while the table is staged, so the scale multiply stays out
 //   of the sum and nothing can be contracted into an FMA)
-//   k rounds of (max, lowest index) over an alive mask, so equal scores
-//   (-inf included) resolve to the lowest candidate index and a row of all
-//   -inf yields 0..k-1; the value of round i becomes -inf when an earlier
-//   round selected the same point id with both entries valid.
+//   the top k by (score descending, lowest candidate index), so equal
+//   scores (-inf included) resolve to the lowest index and a row of all
+//   -inf yields 0..k-1; the value of entry r becomes -inf when an entry
+//   j < r holds the same point id with both entries valid.
+//
+// Signed zeros: the key (csrc/select.cuh) ranks +0.0 above -0.0, as the
+// plain version's lax.top_k order does, but no score is ever -0.0. The sum
+// starts at +0.0, and in round-to-nearest x + y is -0.0 only when both are
+// -0.0 (an exact cancellation gives +0.0), so acc is never -0.0 and
+// neither is acc + bias; an invalid entry is -inf. So this order and the
+// Pallas body's (which ties the two zeros) give the same answer here.
 //
 // What bounds it on the H100: bytes. Each candidate is read once (M code
 // bytes, a 4-byte id, a 1-byte valid flag, a 4-byte bias) and scored with M
-// adds, far below the card's compute rate. The selection is k rounds over
-// the candidate scores, which this kernel keeps on chip.
+// adds, far below the card's compute rate.
 //
-// Design: one block per query row.
-//   * the row's LUT (M x C floats, 8 KB at M=8, C=256) is staged in shared
-//     memory, so the code gathers hit shared memory, not device memory;
-//   * each thread scores a stride of candidates into a score array and sets
-//     an alive bit per candidate;
-//   * each round is a block-wide (max, lowest index) reduction: per thread
-//     over its stride, then warp shuffles, then one warp over the warps'
-//     winners; thread 0 records the winner, checks the point id against the
-//     ids already selected (kept in shared memory) and clears the alive bit.
-//   * the scores and alive bits live in shared memory while they fit the
-//     block's opt-in limit (227 KB on the H100, above 48 KB by opt-in); for
-//     larger candidate counts the wrapper passes a global scratch buffer and
-//     they live there instead, so every N the index can reach runs here.
-#include <cuda_runtime.h>
-#include <climits>
-#include <cstdint>
+// Design: the candidates of a row are split over blocks, so B=16 queries
+// fill the card. One call is two kernel launches (more only when a row
+// has over 32 chunks' survivors):
+//   * pass 1, one block per (chunk of S candidates, query row); S = 4,096
+//     is one probed slab, so the main path's B=16 x 8 slabs give 128
+//     blocks. The row's table is staged in shared memory (8 KB at M=8,
+//     C=256), each thread scores candidates (the 8 code bytes in one
+//     8-byte load) into packed keys in shared memory, and the block
+//     selects the chunk's top-min(k, S) (select.cuh: radix select,
+//     compaction, bitonic sort) into a [B, chunks, k] scratch. 42 KB of
+//     shared memory a block, so five blocks fit an SM;
+//   * pass 2, one block per row: merges the chunks' survivors to the
+//     row's top k, gathers the k selected ids and valid flags into shared
+//     memory, and entry r checks the entries j < r for its id: k^2/2
+//     comparisons spread over the block in place of one thread's scan.
+//   A row of one chunk takes pass 1 only. The dedup waits for the final
+//   order, so no chunk checks duplicates.
+#include "select.cuh"
+
+#include <algorithm>
 #include <cmath>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using sel::kThreads;
 
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  // (v, i) beats (bv, bi): higher value, then lower index; INT_MAX = none
-  return i != INT_MAX && (bi == INT_MAX || v > bv || (v == bv && i < bi));
-}
+// The last step: the sorted survivors become (value, index), with the
+// dedup-after-cut. The selected ids and flags reuse the keys' space.
+struct FusedFinal {
+  const int* ids;
+  const uint8_t* valid;
+  float* vals;
+  int* idxs;
+  int N;
+  int k;
+
+  __device__ void operator()(int row, const sel::Smem& s) const {
+    int* sel_id = reinterpret_cast<int*>(s.keys);
+    int* sel_ok = sel_id + k;
+    const size_t base = static_cast<size_t>(row) * N;
+    for (int r = threadIdx.x; r < k; r += blockDim.x) {
+      const int i = sel::key_index(s.surv[r]);
+      sel_id[r] = ids[base + i];
+      sel_ok[r] = valid[base + i] != 0;
+    }
+    __syncthreads();
+    for (int r = threadIdx.x; r < k; r += blockDim.x) {
+      const uint64_t key = s.surv[r];
+      bool dup = false;
+      if (sel_ok[r]) {
+        const int id = sel_id[r];
+        for (int j = 0; j < r; ++j)
+          if (sel_ok[j] && sel_id[j] == id) { dup = true; break; }
+      }
+      vals[static_cast<size_t>(row) * k + r] =
+          dup ? -INFINITY : sel::key_value(key);
+      idxs[static_cast<size_t>(row) * k + r] = sel::key_index(key);
+    }
+  }
+};
 
 template <bool kInt8>
 __global__ void __launch_bounds__(kThreads)
-fused_query_kernel(const void* __restrict__ lut,
+fused_chunk_kernel(const void* __restrict__ lut,
                    const float* __restrict__ scale,
                    const uint8_t* __restrict__ codes,
-                   const int* __restrict__ ids,
-                   const uint8_t* __restrict__ valid,
-                   const float* __restrict__ bias,
-                   float* __restrict__ vals, int* __restrict__ idxs,
-                   float* __restrict__ scratch_scores,
-                   unsigned* __restrict__ scratch_alive,
-                   int N, int M, int C, int k) {
+                   const float* __restrict__ bias, int N, int M, int C,
+                   int chunks, uint64_t* __restrict__ out, int n_out, int k,
+                   int S, FusedFinal fin) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int row = blockIdx.x;
+  const int chunk = blockIdx.x % chunks;
+  const int row = blockIdx.x / chunks;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int words = (N + 31) / 32;
-
-  float* lut_s = reinterpret_cast<float*>(smem);            // M*C
-  int* sel_ids = reinterpret_cast<int*>(lut_s + M * C);     // k
-  int* sel_ok = sel_ids + k;                                // k
-  float* warp_v = reinterpret_cast<float*>(sel_ok + k);     // kWarps
-  int* warp_i = reinterpret_cast<int*>(warp_v + kWarps);    // kWarps
-  float* scores;
-  unsigned* alive;
-  if (scratch_scores != nullptr) {
-    scores = scratch_scores + (size_t)row * N;
-    alive = scratch_alive + (size_t)row * words;
-  } else {
-    scores = reinterpret_cast<float*>(warp_i + kWarps);     // N
-    alive = reinterpret_cast<unsigned*>(scores + N);        // words
-  }
+  const int lo = chunk * S;
+  const int n = min(S, N - lo);
+  const int cap_n = min(S, N);
+  const sel::Smem s = sel::carve(smem, cap_n,
+                                 sel::pow2_ceil(min(k, cap_n)));
+  float* lut_s = reinterpret_cast<float*>(s.extra);     // M*C
 
   if (kInt8) {
     const int8_t* q_row = static_cast<const int8_t*>(lut) + (size_t)row * M * C;
@@ -93,99 +117,74 @@ fused_query_kernel(const void* __restrict__ lut,
     const float* lut_row = static_cast<const float*>(lut) + (size_t)row * M * C;
     for (int i = tid; i < M * C; i += kThreads) lut_s[i] = lut_row[i];
   }
-  for (int w = tid; w < words; w += kThreads) {
-    const int left = N - 32 * w;
-    alive[w] = left >= 32 ? 0xFFFFFFFFu : ((1u << left) - 1u);
-  }
   __syncthreads();
 
-  const size_t base = (size_t)row * N;
-  for (int i = tid; i < N; i += kThreads) {
+  const size_t base = static_cast<size_t>(row) * N + lo;
+  const bool packed = M == 8 && (reinterpret_cast<uintptr_t>(codes) & 7u) == 0;
+  for (int i = tid; i < n; i += kThreads) {
     const uint8_t* c = codes + (base + i) * M;
     float acc = 0.0f;
-    for (int m = 0; m < M; ++m) acc += lut_s[m * C + c[m]];
-    scores[i] = valid[base + i] ? acc + bias[base + i] : -INFINITY;
+    if (packed) {
+      const uint2 w = *reinterpret_cast<const uint2*>(c);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) acc += lut_s[m * C + ((w.x >> (8 * m)) & 0xFFu)];
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        acc += lut_s[(m + 4) * C + ((w.y >> (8 * m)) & 0xFFu)];
+    } else {
+      for (int m = 0; m < M; ++m) acc += lut_s[m * C + c[m]];
+    }
+    const float score = fin.valid[base + i] ? acc + bias[base + i] : -INFINITY;
+    s.keys[i] = sel::make_key(score, lo + i, false);
   }
   __syncthreads();
-
-  for (int r = 0; r < k; ++r) {
-    float bv = -INFINITY;
-    int bi = INT_MAX;
-    for (int i = tid; i < N; i += kThreads) {
-      if ((alive[i >> 5] >> (i & 31)) & 1u) {
-        const float v = scores[i];
-        if (bi == INT_MAX || v > bv) { bv = v; bi = i; }
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xFFFFFFFFu, bv, off);
-      const int oi = __shfl_down_sync(0xFFFFFFFFu, bi, off);
-      if (better(ov, oi, bv, bi)) { bv = ov; bi = oi; }
-    }
-    if (lane == 0) { warp_v[warp] = bv; warp_i[warp] = bi; }
-    __syncthreads();
-    if (tid == 0) {
-      bv = warp_v[0];
-      bi = warp_i[0];
-      for (int w = 1; w < kWarps; ++w)
-        if (better(warp_v[w], warp_i[w], bv, bi)) { bv = warp_v[w]; bi = warp_i[w]; }
-      const int id_b = ids[base + bi];
-      const int ok_b = valid[base + bi] != 0;
-      bool dup = false;
-      if (ok_b)
-        for (int j = 0; j < r; ++j)
-          if (sel_ok[j] && sel_ids[j] == id_b) { dup = true; break; }
-      vals[(size_t)row * k + r] = dup ? -INFINITY : bv;
-      idxs[(size_t)row * k + r] = bi;
-      sel_ids[r] = id_b;
-      sel_ok[r] = ok_b;
-      alive[bi >> 5] &= ~(1u << (bi & 31));
-    }
-    __syncthreads();
+  sel::select_top(s, n, min(k, n));
+  if (chunks == 1) {
+    fin(row, s);
+    return;
   }
-}
-
-size_t fixed_smem_bytes(int M, int C, int k) {
-  return sizeof(float) * (size_t)M * C + 2 * sizeof(int) * (size_t)k
-         + kWarps * (sizeof(float) + sizeof(int));
-}
-
-size_t onchip_smem_bytes(int N, int M, int C, int k) {
-  return fixed_smem_bytes(M, C, k) + sizeof(float) * (size_t)N
-         + sizeof(unsigned) * (size_t)((N + 31) / 32);
-}
-
-int optin_limit() {
-  int dev = 0, limit = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return limit;
+  uint64_t* dst = out + static_cast<size_t>(row) * n_out
+                  + static_cast<size_t>(chunk) * min(k, S);
+  for (int i = tid; i < min(k, n); i += kThreads) dst[i] = s.surv[i];
 }
 
 template <bool kInt8>
 int launch(const void* lut, const void* scale, const void* codes,
            const void* ids, const void* valid, const void* bias, void* vals,
-           void* idxs, void* scratch_scores, void* scratch_alive, int B, int N,
-           int M, int C, int k, void* stream) {
-  const size_t smem = scratch_scores != nullptr
-                          ? fixed_smem_bytes(M, C, k)
-                          : onchip_smem_bytes(N, M, C, k);
-  if (smem > (size_t)optin_limit()) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_query_kernel<kInt8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  fused_query_kernel<kInt8>
-      <<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          lut, static_cast<const float*>(scale),
-          static_cast<const uint8_t*>(codes), static_cast<const int*>(ids),
-          static_cast<const uint8_t*>(valid), static_cast<const float*>(bias),
-          static_cast<float*>(vals), static_cast<int*>(idxs),
-          static_cast<float*>(scratch_scores),
-          static_cast<unsigned*>(scratch_alive), N, M, C, k);
-  return (int)cudaGetLastError();
+           void* idxs, void* scratch, long long scratch_words, int B, int N,
+           int M, int C, int k, int S, int device, void* stream) {
+  if (B == 0) return 0;
+  if (k < 1 || k > N || S < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return sel::on_device(device, [&]() -> cudaError_t {
+    const int chunks = (N + S - 1) / S;
+    if (chunks > 1 && 2 * k > S) return cudaErrorInvalidValue;
+    const size_t level = static_cast<size_t>(B) * chunks * std::min(k, S);
+    if (chunks > 1 && static_cast<size_t>(scratch_words) < 2 * level)
+      return cudaErrorInvalidValue;
+    uint64_t* keys = static_cast<uint64_t*>(scratch);
+    uint64_t* other = chunks > 1 ? keys + level : nullptr;
+    const FusedFinal fin{static_cast<const int*>(ids),
+                         static_cast<const uint8_t*>(valid),
+                         static_cast<float*>(vals), static_cast<int*>(idxs),
+                         N, k};
+    const int n_out = sel::level_out(N, k, S);
+    const int cap_n = std::min(N, S);
+    const size_t bytes = sel::smem_bytes(cap_n,
+                                         sel::pow2_ceil(std::min(k, cap_n)))
+                         + sizeof(float) * static_cast<size_t>(M) * C;
+    static int granted[sel::kMaxDevices];
+    cudaError_t err = sel::allow_smem(fused_chunk_kernel<kInt8>, bytes,
+                                      device, granted);
+    if (err != cudaSuccess) return err;
+    fused_chunk_kernel<kInt8><<<chunks * B, kThreads, bytes, st>>>(
+        lut, static_cast<const float*>(scale),
+        static_cast<const uint8_t*>(codes), static_cast<const float*>(bias),
+        N, M, C, chunks, keys, n_out, k, S, fin);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || chunks == 1) return err;
+    return sel::merge_levels(keys, other, B, n_out, k, S, fin, device, st);
+  });
 }
 
 }  // namespace
@@ -194,30 +193,30 @@ extern "C" const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// 1 when the scores and alive bits of N candidates do not fit the block's
-// shared memory and the wrapper must pass global scratch buffers.
-extern "C" int fused_query_needs_scratch(int N, int M, int C, int k) {
-  return onchip_smem_bytes(N, M, C, k) > (size_t)optin_limit() ? 1 : 0;
-}
-
+// lut f32 [B, M, C]; codes u8 [B, N, M]; ids i32 [B, N]; valid u8 [B, N];
+// bias f32 [B, N] -> vals f32 [B, k], idxs i32 [B, k]. Chunks of S
+// candidates (the wrapper's chunk_plan); with more than one chunk the
+// scratch holds at least 2 * B * chunks * min(k, S) int64 words.
 extern "C" int fused_query_launch(const void* lut, const void* codes,
                                   const void* ids, const void* valid,
                                   const void* bias, void* vals, void* idxs,
-                                  void* scratch_scores, void* scratch_alive,
-                                  int B, int N, int M, int C, int k,
-                                  void* stream) {
+                                  void* scratch, long long scratch_words,
+                                  int B, int N, int M, int C, int k, int S,
+                                  int device, void* stream) {
   return launch<false>(lut, nullptr, codes, ids, valid, bias, vals, idxs,
-                       scratch_scores, scratch_alive, B, N, M, C, k, stream);
+                       scratch, scratch_words, B, N, M, C, k, S, device,
+                       stream);
 }
 
 // qlut i8 [B, M, C] and scale f32 [B, M] in place of the f32 table.
 extern "C" int fused_query_int8_launch(const void* qlut, const void* scale,
                                        const void* codes, const void* ids,
                                        const void* valid, const void* bias,
-                                       void* vals, void* idxs,
-                                       void* scratch_scores,
-                                       void* scratch_alive, int B, int N,
-                                       int M, int C, int k, void* stream) {
+                                       void* vals, void* idxs, void* scratch,
+                                       long long scratch_words, int B, int N,
+                                       int M, int C, int k, int S, int device,
+                                       void* stream) {
   return launch<true>(qlut, scale, codes, ids, valid, bias, vals, idxs,
-                      scratch_scores, scratch_alive, B, N, M, C, k, stream);
+                      scratch, scratch_words, B, N, M, C, k, S, device,
+                      stream);
 }

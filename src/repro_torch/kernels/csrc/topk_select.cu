@@ -1,107 +1,208 @@
 // Row-wise top-k selection with the lowest index winning ties.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/topk_select.py::
-// topk_select (body _topk_kernel).
+// topk_select (body _topk_kernel), and lax.top_k where the reference's
+// ops.topk_select sends k > 64.
 //
-// Contract (bitwise, pinned by the plain version in topk_select.py, which
-// is lax.top_k's order): k rounds of (max, lowest index) over an alive
-// mask; round r writes the winner's value and index and clears its alive
-// bit. Equal scores (-inf included) resolve to the lowest index, so a row
-// of all -inf yields 0..k-1.
+// Contract (bitwise, pinned by the plain versions in topk_select.py):
+// values in descending order, equal values (-inf included) by ascending
+// index, so a row of all -inf yields 0..k-1. Two orders differ at signed
+// zeros (`signed_zeros`):
+//   0: the Pallas body's. -0.0 and +0.0 tie (the key reads -0.0 as +0.0)
+//      and each round writes the maximum of the entries still alive, so a
+//      zero is written as +0.0 while a +0.0 is left at its index or after
+//      it in the row (they all tie), else as -0.0: the block knows the
+//      last index that holds +0.0 and compares.
+//   1: lax.top_k's. +0.0 ranks above -0.0; each entry keeps its value.
 //
-// What bounds it on the H100: neither bytes nor operations. The function
-// reads N floats and writes k (value, index) pairs per row; at the graph's
-// shapes (N <= 128, k <= 64) that is under 1 KB a row. The time is the k
-// dependent rounds, each a block-wide reduction with two barriers.
+// What bounds it on the H100: neither bytes nor operations. At the
+// graph's shapes (N <= 144, k <= 80) a row is under 1 KB and the time is
+// the latency of one pass over it; on the index's long rows (N = 32,768)
+// it is the selection's passes over shared memory.
 //
-// Design: one block per row, the selection loop of fused_query.cu. Each
-// round every thread takes the best alive entry of its stride of the row
-// (read from device memory, which L1 holds after the first round), then
-// warp shuffles and one warp over the warps' winners pick the row's
-// winner. The alive bits live in shared memory while they fit the block's
-// opt-in limit (N up to about 1.8 million); beyond it the wrapper passes a
-// global scratch buffer, so every N runs here. The block has 128 threads:
-// the graph's rows are at most 128 long, so each thread holds at most one
-// entry there.
-#include <cuda_runtime.h>
-#include <climits>
-#include <cstdint>
+// Design:
+//   * rows of at most 256 entries: one warp per row, eight rows a block,
+//     no block barrier. The row sits in registers as packed 64-bit keys
+//     (csrc/select.cuh), ceil(N/32) rounded up to a power of two per lane,
+//     and a warp bitonic sort of the keys orders it: log2(32E)(log2(32E)+1)
+//     /2 compare-exchange steps, each an independent shuffle per register,
+//     whatever k is. That is chosen over k rounds of a warp argmax, whose
+//     5 dependent shuffles a round make it cost grow with k (64-80 rounds
+//     at the graph's merges).
+//   * longer rows: split into chunks (select.cuh); a block selects each
+//     chunk's top-min(k, chunk) in shared memory, and merge levels reduce
+//     the survivors to the row's top k. Nothing lives in global memory but
+//     the survivors between launches (a scratch the wrapper allocates).
+//   * no device attribute is read per call: more than 48 KB of dynamic
+//     shared memory is granted once per kernel and device.
+#include "select.cuh"
+
+#include <algorithm>
 #include <cmath>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
+using sel::kFull;
+using sel::kThreads;
 
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  // (v, i) beats (bv, bi): higher value, then lower index; INT_MAX = none
-  return i != INT_MAX && (bi == INT_MAX || v > bv || (v == bv && i < bi));
+constexpr int kShortRow = 256;
+constexpr int kRowsPerBlock = kThreads / 32;
+
+__device__ __forceinline__ float written(uint64_t key, int last_pos_zero,
+                                         bool tie) {
+  float v = sel::key_value(key);
+  if (tie && v == 0.0f && last_pos_zero < sel::key_index(key)) v = -0.0f;
+  return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-topk_select_kernel(const float* __restrict__ scores, float* __restrict__ vals,
-                   int* __restrict__ idxs, unsigned* __restrict__ scratch_alive,
-                   int N, int k) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int row = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int words = (N + 31) / 32;
-
-  float* warp_v = reinterpret_cast<float*>(smem);             // kWarps
-  int* warp_i = reinterpret_cast<int*>(warp_v + kWarps);      // kWarps
-  unsigned* alive = scratch_alive != nullptr
-                        ? scratch_alive + (size_t)row * words
-                        : reinterpret_cast<unsigned*>(warp_i + kWarps);
-
-  for (int w = tid; w < words; w += kThreads) {
-    const int left = N - 32 * w;
-    alive[w] = left >= 32 ? 0xFFFFFFFFu : ((1u << left) - 1u);
-  }
-  __syncthreads();
-
-  const float* s = scores + (size_t)row * N;
-  for (int r = 0; r < k; ++r) {
-    float bv = -INFINITY;
-    int bi = INT_MAX;
-    for (int i = tid; i < N; i += kThreads) {
-      if ((alive[i >> 5] >> (i & 31)) & 1u) {
-        const float v = s[i];
-        if (bi == INT_MAX || v > bv) { bv = v; bi = i; }
+// Sorts the warp's 32*E keys (element j*32 + lane in v[j]) descending.
+template <int E, int LOG>
+__device__ __forceinline__ void warp_bitonic_desc(uint64_t (&v)[E],
+                                                  int lane) {
+#pragma unroll
+  for (int ls = 1; ls <= LOG; ++ls) {
+    const int size = 1 << ls;
+#pragma unroll
+    for (int lt = ls - 1; lt >= 0; --lt) {
+      const int stride = 1 << lt;
+      if (stride >= 32) {
+        const int js = stride >> 5;
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          if ((j & js) == 0) {
+            const bool desc = ((j * 32 + lane) & size) == 0;
+            const uint64_t x = v[j], y = v[j + js];
+            if (desc ? x < y : x > y) { v[j] = y; v[j + js] = x; }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          const uint64_t o = __shfl_xor_sync(kFull, v[j], stride);
+          const bool keep_max = ((lane & stride) == 0)
+                                == (((j * 32 + lane) & size) == 0);
+          v[j] = keep_max ? (v[j] > o ? v[j] : o) : (v[j] < o ? v[j] : o);
+        }
       }
     }
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xFFFFFFFFu, bv, off);
-      const int oi = __shfl_down_sync(0xFFFFFFFFu, bi, off);
-      if (better(ov, oi, bv, bi)) { bv = ov; bi = oi; }
-    }
-    if (lane == 0) { warp_v[warp] = bv; warp_i[warp] = bi; }
-    __syncthreads();
-    if (tid == 0) {
-      bv = warp_v[0];
-      bi = warp_i[0];
-      for (int w = 1; w < kWarps; ++w)
-        if (better(warp_v[w], warp_i[w], bv, bi)) { bv = warp_v[w]; bi = warp_i[w]; }
-      vals[(size_t)row * k + r] = bv;
-      idxs[(size_t)row * k + r] = bi;
-      alive[bi >> 5] &= ~(1u << (bi & 31));
-    }
-    __syncthreads();
   }
 }
 
-size_t fixed_smem_bytes() { return kWarps * (sizeof(float) + sizeof(int)); }
-
-size_t onchip_smem_bytes(int N) {
-  return fixed_smem_bytes() + sizeof(unsigned) * (size_t)((N + 31) / 32);
+template <int E, int LOG>
+__global__ void __launch_bounds__(kThreads)
+short_rows_kernel(const float* __restrict__ scores, float* __restrict__ vals,
+                  int* __restrict__ idxs, int B, int N, int k, bool tie) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (row >= B) return;                        // the whole warp
+  const float* s = scores + static_cast<size_t>(row) * N;
+  uint64_t v[E];
+  int last = -1;                               // last index holding +0.0
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    const int e = j * 32 + lane;
+    v[j] = 0;                                  // padding sorts last
+    if (e < N) {
+      const float x = s[e];
+      v[j] = sel::make_key(x, e, tie);
+      if (__float_as_uint(x) == 0u) last = e;
+    }
+  }
+  warp_bitonic_desc<E, LOG>(v, lane);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    last = max(last, __shfl_xor_sync(kFull, last, off));
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    const int p = j * 32 + lane;
+    if (p < k) {
+      vals[static_cast<size_t>(row) * k + p] = written(v[j], last, tie);
+      idxs[static_cast<size_t>(row) * k + p] = sel::key_index(v[j]);
+    }
+  }
 }
 
-int optin_limit() {
-  int dev = 0, limit = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return limit;
+// The last step of a long row: the sorted survivors become (value, index).
+struct TopkFinal {
+  float* vals;
+  int* idxs;
+  const int* last_zero;    // [B, chunks0]: per chunk, last +0.0 index or -1
+  int chunks0;
+  int k;
+  bool tie;
+
+  __device__ void write(int row, const sel::Smem& s, int last) const {
+    for (int r = threadIdx.x; r < k; r += blockDim.x) {
+      const uint64_t key = s.surv[r];
+      vals[static_cast<size_t>(row) * k + r] = written(key, last, tie);
+      idxs[static_cast<size_t>(row) * k + r] = sel::key_index(key);
+    }
+  }
+
+  __device__ void operator()(int row, const sel::Smem& s) const {
+    int last = -1;
+    if (tie) {                                 // the row's last +0.0
+      if (threadIdx.x == 0) s.scal[4] = 0;
+      __syncthreads();
+      for (int c = threadIdx.x; c < chunks0; c += blockDim.x)
+        atomicMax(&s.scal[4], static_cast<unsigned>(
+            last_zero[static_cast<size_t>(row) * chunks0 + c] + 1));
+      __syncthreads();
+      last = static_cast<int>(s.scal[4]) - 1;
+    }
+    write(row, s, last);
+  }
+};
+
+// First level of a long row: block (chunk, row) keys its chunk of the
+// scores and selects it (select.cuh).
+__global__ void __launch_bounds__(kThreads)
+scores_level_kernel(const float* __restrict__ scores, int N, int chunks,
+                    uint64_t* __restrict__ out, int n_out,
+                    int* __restrict__ last_zero, int k, int S,
+                    TopkFinal fin) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int chunk = blockIdx.x % chunks;
+  const int row = blockIdx.x / chunks;
+  const int lo = chunk * S;
+  const int n = min(S, N - lo);
+  const int cap_n = min(S, N);
+  const sel::Smem s = sel::carve(smem, cap_n,
+                                 sel::pow2_ceil(min(k, cap_n)));
+  if (threadIdx.x == 0) s.scal[4] = 0;
+  __syncthreads();
+  const float* src = scores + static_cast<size_t>(row) * N + lo;
+  int last = -1;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float x = src[i];
+    s.keys[i] = sel::make_key(x, lo + i, fin.tie);
+    if (__float_as_uint(x) == 0u) last = lo + i;
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    last = max(last, __shfl_xor_sync(kFull, last, off));
+  if ((threadIdx.x & 31) == 0 && last >= 0)
+    atomicMax(&s.scal[4], static_cast<unsigned>(last + 1));
+  __syncthreads();
+  sel::select_top(s, n, min(k, n));
+  const int last_here = static_cast<int>(s.scal[4]) - 1;
+  if (chunks == 1) {
+    fin.write(row, s, last_here);
+    return;
+  }
+  uint64_t* dst = out + static_cast<size_t>(row) * n_out
+                  + static_cast<size_t>(chunk) * min(k, S);
+  for (int i = threadIdx.x; i < min(k, n); i += blockDim.x) dst[i] = s.surv[i];
+  if (threadIdx.x == 0)
+    last_zero[static_cast<size_t>(row) * chunks + chunk] = last_here;
+}
+
+template <int E, int LOG>
+cudaError_t launch_short(const float* scores, float* vals, int* idxs, int B,
+                         int N, int k, bool tie, cudaStream_t stream) {
+  const int blocks = (B + kRowsPerBlock - 1) / kRowsPerBlock;
+  short_rows_kernel<E, LOG><<<blocks, kThreads, 0, stream>>>(
+      scores, vals, idxs, B, N, k, tie);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -110,27 +211,56 @@ extern "C" const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// 1 when the alive bits of N entries do not fit the block's shared memory
-// and the wrapper must pass a global scratch buffer of B x ceil(N/32) words.
-extern "C" int topk_select_needs_scratch(int N) {
-  return onchip_smem_bytes(N) > (size_t)optin_limit() ? 1 : 0;
-}
-
+// scores f32 [B, N] -> vals f32 [B, k], idxs i32 [B, k]. A row longer
+// than 256 is split into chunks of S (the wrapper's chunk_plan), which
+// needs a scratch of B * (2 * chunks * min(k, S) + chunks) int64 words
+// when there is more than one chunk. One call is one launch for short
+// rows or single-chunk rows, else two or more.
 extern "C" int topk_select_launch(const void* scores, void* vals, void* idxs,
-                                  void* scratch_alive, int B, int N, int k,
+                                  void* scratch, long long scratch_words,
+                                  int B, int N, int k, int S,
+                                  int signed_zeros, int device,
                                   void* stream) {
   if (B == 0) return 0;
-  const size_t smem = scratch_alive != nullptr ? fixed_smem_bytes()
-                                               : onchip_smem_bytes(N);
-  if (smem > (size_t)optin_limit()) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        topk_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  topk_select_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(scores), static_cast<float*>(vals),
-      static_cast<int*>(idxs), static_cast<unsigned*>(scratch_alive), N, k);
-  return (int)cudaGetLastError();
+  if (k < 1 || k > N || S < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const float* sc = static_cast<const float*>(scores);
+  float* v = static_cast<float*>(vals);
+  int* ix = static_cast<int*>(idxs);
+  const bool tie = signed_zeros == 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return sel::on_device(device, [&]() -> cudaError_t {
+    if (N <= kShortRow) {
+      switch (sel::pow2_ceil((N + 31) / 32)) {
+        case 1: return launch_short<1, 5>(sc, v, ix, B, N, k, tie, st);
+        case 2: return launch_short<2, 6>(sc, v, ix, B, N, k, tie, st);
+        case 4: return launch_short<4, 7>(sc, v, ix, B, N, k, tie, st);
+        default: return launch_short<8, 8>(sc, v, ix, B, N, k, tie, st);
+      }
+    }
+    const int chunks = (N + S - 1) / S;
+    const int m0 = std::min(k, S);
+    if (chunks > 1 && 2 * k > S) return cudaErrorInvalidValue;
+    const size_t level = static_cast<size_t>(B) * chunks * m0;
+    if (chunks > 1 && static_cast<size_t>(scratch_words)
+                          < 2 * level + static_cast<size_t>(B) * chunks)
+      return cudaErrorInvalidValue;
+    uint64_t* keys = static_cast<uint64_t*>(scratch);
+    uint64_t* other = chunks > 1 ? keys + level : nullptr;
+    int* last_zero = chunks > 1 ? reinterpret_cast<int*>(other + level)
+                                : nullptr;
+    const TopkFinal fin{v, ix, last_zero, chunks, k, tie};
+    const int n_out = sel::level_out(N, k, S);
+    const int cap_n = std::min(N, S);
+    const size_t bytes = sel::smem_bytes(cap_n,
+                                         sel::pow2_ceil(std::min(k, cap_n)));
+    static int granted[sel::kMaxDevices];
+    cudaError_t err = sel::allow_smem(scores_level_kernel, bytes, device,
+                                      granted);
+    if (err != cudaSuccess) return err;
+    scores_level_kernel<<<chunks * B, kThreads, bytes, st>>>(
+        sc, N, chunks, keys, n_out, last_zero, k, S, fin);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || chunks == 1) return err;
+    return sel::merge_levels(keys, other, B, n_out, k, S, fin, device, st);
+  });
 }

@@ -23,8 +23,8 @@ plain version; quantisation moves its scores away from the f32 path by
 construction.
 
 Each wrapper launches the kernel for CUDA tensors and runs the plain
-version for CPU tensors; ``<wrapper>.launches`` counts the kernel
-launches.
+version for CPU tensors; ``<wrapper>.launches`` counts the calls that
+launched it (a call is two kernel launches: the chunks, then the merge).
 """
 from __future__ import annotations
 
@@ -34,10 +34,12 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import topk_select as _tk
 from repro_torch.kernels.ref import (pq_score_seq_ref, shortlist_dedup_ref,
                                      topk_ref)
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 7
+             + [ctypes.c_void_p])
 _ARGTYPES_INT8 = [ctypes.c_void_p] + _ARGTYPES
 _INV_127 = float(np.float32(1.0 / 127.0))
 
@@ -101,22 +103,19 @@ def _launch(entry: str, table, codes, ids, valid, bias, k: int):
     lut = table[0]
     b, m, c = lut.shape
     n = codes.shape[1]
+    chunk, words = _tk.chunk_plan(n, k)
     args = [t.contiguous() for t in (*table, codes, ids, valid, bias)]
-    vals = torch.empty((b, k), dtype=torch.float32, device=lut.device)
-    idxs = torch.empty((b, k), dtype=torch.int32, device=lut.device)
-    needs = _build.function("fused_query", "fused_query_needs_scratch",
-                            [ctypes.c_int] * 4)
-    scores = alive = None
-    if needs(n, m, c, k):
-        scores = torch.empty((b, n), dtype=torch.float32, device=lut.device)
-        alive = torch.empty((b, (n + 31) // 32), dtype=torch.int32,
-                            device=lut.device)
+    dev = lut.device
+    vals = torch.empty((b, k), dtype=torch.float32, device=dev)
+    idxs = torch.empty((b, k), dtype=torch.int32, device=dev)
+    scratch = (torch.empty(b * words, dtype=torch.int64, device=dev)
+               if words else None)
     argtypes = _ARGTYPES_INT8 if len(table) == 2 else _ARGTYPES
     launch = _build.function("fused_query", entry, argtypes)
-    with torch.cuda.device(lut.device):
-        code = launch(*map(_build.ptr, args), _build.ptr(vals),
-                      _build.ptr(idxs), _build.ptr(scores), _build.ptr(alive),
-                      b, n, m, c, k, _build.stream_of(lut))
+    code = launch(*[t.data_ptr() for t in args], vals.data_ptr(),
+                  idxs.data_ptr(),
+                  None if scratch is None else scratch.data_ptr(), b * words,
+                  b, n, m, c, k, chunk, dev.index, _build.stream_of(lut))
     _build.check(code, "fused_query", entry)
     return vals, idxs
 

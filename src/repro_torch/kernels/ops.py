@@ -17,7 +17,7 @@ from repro_torch.kernels import pq_score as _pq
 from repro_torch.kernels import scorer_mlp as _mlp
 from repro_torch.kernels import sparse_dot as _sd
 from repro_torch.kernels import topk_select as _tk
-from repro_torch.kernels.ref import shortlist_dedup_ref, topk_ref
+from repro_torch.kernels.ref import shortlist_dedup_ref
 
 KERNELS = {"fused_query": _fq.fused_query_kernel,
            "fused_query_int8": _fq.fused_query_kernel_int8,
@@ -93,15 +93,10 @@ def pq_scores(lut, codes, *, quantized: bool = False) -> torch.Tensor:
 
 
 def topk_select(scores, k: int):
-    """Row-wise top-k (vals f32, idxs i32), lowest index first at ties.
-    The kernel serves k <= 64, as the reference's does; above that the
-    plain stable-sort top-k runs (what ``lax.top_k`` computes), which on
-    the H100 is 9.5x faster than the kernel on the unfused shortlist's
-    32,768-long rows (PERF.md, "Top-k above k = 64")."""
-    if k > 64:
-        vals, idxs = topk_ref(scores, k)
-        return vals, idxs.to(torch.int32)
-    return _tk.topk_select(scores, k)
+    """Row-wise top-k (vals f32, idxs i32), lowest index first at ties, in
+    the reference's two orders: its Pallas kernel's at k <= 64 (-0.0 ties
+    +0.0) and ``lax.top_k``'s above (+0.0 first). Both run on the kernel."""
+    return _tk.topk_select(scores, k, signed_zeros=k > 64)
 
 
 def dedup_mask(vals, idxs, ids, valid) -> torch.Tensor:

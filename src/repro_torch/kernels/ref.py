@@ -13,11 +13,19 @@ from repro_torch.core.types import PAD_INDEX
 
 
 def topk_ref(scores: torch.Tensor, k: int):
-    """Row-wise top-k (values, indices) with ``lax.top_k``'s tie-break:
-    equal scores (-inf included) resolve to the lowest index.
-    ``torch.topk`` does not promise that, a stable descending sort does."""
-    vals, idxs = torch.sort(scores, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idxs[..., :k]
+    """Row-wise top-k (values, indices) of f32 scores in ``lax.top_k``'s
+    order: descending, +0.0 above -0.0, equal scores (-inf included) by
+    the lowest index, each entry with its own value. ``torch.topk`` does
+    not promise that order at ties, and a stable sort on the floats ties
+    -0.0 with +0.0: the stable sort runs on the order-preserving int32
+    image of the bits (``b ^ 0x7FFFFFFF`` where the sign bit is set)."""
+    if scores.dtype != torch.float32:
+        raise TypeError(f"scores must be f32, got {scores.dtype}")
+    bits = scores.contiguous().view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    _, idxs = torch.sort(key, dim=-1, descending=True, stable=True)
+    idxs = idxs[..., :k]
+    return torch.gather(scores, -1, idxs), idxs
 
 
 def sparse_dot_ref(q_idx, q_val, db_idx, db_val) -> torch.Tensor:

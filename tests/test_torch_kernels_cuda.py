@@ -42,9 +42,9 @@ def _fq_check(case, k, dev):
                                  (300, 300), (1000, 1)])
 def test_fused_query_matches_plain_bitwise(card, n, k):
     """B=16, M=8, C=256 as on the main path: N = nprobe x the offline
-    slab (8 x 1,024), a doubled slab (opt-in shared memory; the arxiv run
-    of chip_smoke.py reaches N = 32,768), a slab whose scores need global
-    scratch, k = N and k = 1."""
+    slab (8 x 1,024), a doubled slab (the arxiv run of chip_smoke.py
+    reaches N = 32,768), 16 chunks merged in one block, k = N and k = 1
+    (rows of one chunk)."""
     rng = np.random.default_rng(n + k)
     _fq_check(cases.fused_query_inputs(rng, 16, n, 8, 256, max(2, n // 3),
                                        0.3), k, card)
@@ -67,6 +67,32 @@ def test_fused_query_edge_cases(card, name):
         assert torch.equal(idxs.cpu()[0], torch.arange(8, dtype=torch.int32))
         assert torch.isfinite(vals.cpu()[0]).tolist() == [
             True, False, False, True, False, True, False, False]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("name", ["ragged chunk", "short row k=N",
+                                  "copies across chunks", "all-invalid long"])
+def test_fused_query_split_cases(card, name, int8):
+    """Rows split into chunks of ``topk_select.CHUNK`` candidates (one
+    probed slab): a ragged last chunk, a row shorter than a chunk with
+    k = N, SOAR copies in different chunks, all-invalid rows over three
+    chunks; f32 and int8 tables."""
+    rng = np.random.default_rng(17)
+    case, k = {n: (c, k) for n, c, k in
+               cases.fused_query_split_cases(rng, topk_select.CHUNK)}[name]
+    if not int8:
+        vals, idxs = _fq_check(case, k, card)
+    else:
+        args = [torch.as_tensor(case[a]).to(card) for a in cases.FQ_ORDER]
+        table = ops.quantize_lut(args[0])
+        vals, idxs = fused_query.fused_query_kernel_int8(*table, *args[1:], k)
+        want = fused_query.fused_query_int8_plain(*table, *args[1:], k)
+        torch.cuda.synchronize()
+        assert torch.equal(idxs, want[1]) and torch.equal(vals, want[0])
+    if name == "all-invalid long":
+        assert torch.isneginf(vals).all()
+        assert torch.equal(idxs.cpu(), torch.arange(k, dtype=torch.int32)
+                           .repeat(2, 1))
 
 
 @pytest.mark.parametrize("unit", [True, False])
@@ -150,24 +176,56 @@ def test_fused_query_int8_edge_cases(card, name):
     assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
 
 
+def _topk_check(scores, k, dev):
+    """ops.topk_select (the kernel, in the order the reference's routing
+    names for k) against its plain version, bitwise with sign bits."""
+    scores = torch.as_tensor(scores).to(dev)
+    before = topk_select.topk_select.launches
+    got = ops.topk_select(scores, k)
+    want = topk_select.topk_select_plain(scores, k, signed_zeros=k > 64)
+    torch.cuda.synchronize()
+    assert topk_select.topk_select.launches == before + 1
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    return got
+
+
 @pytest.mark.parametrize("name", ["merge ties", "read ties", "k=N", "k=1",
-                                  "scratch"])
+                                  "scratch", "signed zeros k<=64",
+                                  "signed zeros k>64"])
 def test_topk_select_matches_plain_bitwise(card, name):
     """The graph's merge shape (1,024 rows of width + candidates = 128,
     k = 64) and read shape (16 rows of 64, k = 8) with ties and all -inf
-    rows, k = N, k = 1, and a 2M-entry row (global scratch)."""
+    rows, k = N, k = 1, a 2M-entry row (489 chunks, merged in one block),
+    and signed zeros in both orders (short rows: one warp each)."""
     edge = {n: (s, k) for n, s, k in
             cases.topk_edge_cases(np.random.default_rng(5))}
     scores, k = edge[name]
-    scores = torch.as_tensor(scores).to(card)
-    before = topk_select.topk_select.launches
-    got = ops.topk_select(scores, k)
-    want = topk_select.topk_select_plain(scores, k)
-    torch.cuda.synchronize()
-    assert topk_select.topk_select.launches == before + 1
-    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    got = _topk_check(scores, k, card)
     if name == "merge ties":
         assert torch.equal(got[1][0].cpu(), torch.arange(k, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("name", ["equal values", "ragged zeros"])
+def test_topk_select_split_cases(card, name):
+    """Rows split into chunks of ``topk_select.CHUNK``: equal values over
+    eight chunks select 0..127 (ties across chunk boundaries), and signed
+    zeros with a ragged last chunk."""
+    scores, k = {n: (s, k) for n, s, k in
+                 cases.topk_split_cases(topk_select.CHUNK)}[name]
+    got = _topk_check(scores, k, card)
+    if name == "equal values":
+        assert torch.equal(got[1].cpu(), torch.arange(k, dtype=torch.int32)
+                           .repeat(2, 1))
+
+
+@pytest.mark.parametrize("b,n,k", [(64, 32768, 128), (1024, 144, 80),
+                                   (256, 5000, 2049), (4, 600_000, 128)])
+def test_topk_select_above_64_matches_plain(card, b, n, k):
+    """Above k = 64 (lax.top_k's order): the unfused shortlist's top-r, a
+    GraphConfig(k=10) merge, a k above CHUNK / 2 (a doubled chunk), and a
+    row whose survivors are merged twice (147 chunks, then 5)."""
+    _topk_check(cases.topk_inputs(np.random.default_rng(n), b, n), k, card)
 
 
 @pytest.mark.parametrize("form,b,n,m,c", [("batched", 16, 32768, 8, 256),

@@ -1,6 +1,6 @@
-"""Times of the top-k and fused-shortlist kernels of two trees of
-the PyTorch/CUDA port, measured in turns on one card (A B B A), for
-comparing a change with its parent in one run:
+"""Times of kernels, index and scoring steps and the neighborhood RPC of
+two trees of the PyTorch/CUDA port, measured in turns on one card
+(A B B A), for comparing a change with its parent in one run:
 
     python benchmarks/torch_kernel_ab.py --a PARENT_TREE --b . \\
         [--out kernel_ab.json]
@@ -17,8 +17,28 @@ read shapes, the unfused shortlist's top-128 and a GraphConfig(k=10)
 merge (k > 64), each beside the plain version and ``torch.topk``, and the
 fused shortlist (f32 at B=16 and B=256, int8 at B=16; N = 8 slabs of
 4,096, k = 128). Each turn also checks every kernel result against the
-tree's plain version. The last line is the JSON of all turns with the
-card's name and power limit. Imports nothing of JAX.
+tree's plain version.
+
+Steps, the functions both trees have, on state made here from seeds:
+``ann.scann._query_step`` at B=16 and B=256 on one index state of the
+arxiv layout (661 partitions of slabs of 4,096, probe 8, reorder 128,
+k = 11, a slab of 262,144 rows of K = 9), each checked against the same
+step on the CPU (the plain versions); ``core.scorer.score_pairs`` on
+arxiv feature rows at P=160 and P=4,096, aligned (both trees), and as the
+neighborhood RPC scores (``rpc``: the parent repeats each query row on
+the host, a tree whose ``score_pairs`` takes ``group`` passes the query
+rows once). A step's row adds its device kernels and copies per call
+(``torch.profiler``). Last, the neighborhood RPC on an engine of the
+arxiv node count with the chip_smoke.py main-path configuration: wall,
+device time, device kernels and copies per RPC over 8 RPCs of 16 ids.
+Its check is between turns: the answer to one fixed RPC of 16 ids must
+be the first turn's (the last turn's, for the first), the ids exactly and
+the weights within pair_score's rtol 1e-5 / atol 1e-6 (trees may score
+with another tanh). Every row carries ``equal``, and any false one fails
+the run.
+
+The last line is the JSON of all turns with the card's name and power
+limit. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -38,6 +58,10 @@ TOPK = {"merge": (1024, 128, 64), "read": (16, 64, 8),
 FUSED = {"f32 B=16": (16, False), "f32 B=256": (256, False),
          "int8 B=16": (16, True)}
 N_FUSED, K_FUSED = 8 * 4096, 128
+QUERY_STEP = (16, 256)          # queries per _query_step call
+INDEX = dict(partitions=661, slab=4096, m=8, centers=256, d_proj=64,
+             cap=262_144, k_dims=9, nprobe=8, reorder=128, k=11)
+PAIRS = {"P=160": (16, 10), "P=4096": (256, 16)}   # query rows, group
 
 
 def _topk_scores(b: int, n: int) -> np.ndarray:
@@ -56,6 +80,57 @@ def _fused_inputs(b: int) -> list:
             rng.integers(0, n // 2, (b, n)).astype(np.int32),
             rng.random((b, n)) >= 0.1,
             rng.normal(size=(b, n)).astype(np.float32)]
+
+
+def _index_state() -> dict:
+    """One seeded index state of the arxiv layout (``INDEX``): centroids,
+    codebooks, slab members (30% empty), PQ codes, valid flags (5%
+    tombstoned) and the sparse slab rows (vocabulary 2,000, so rows
+    share indices with the queries; unit values, so any summation order
+    gives the same bits and the card's step equals the CPU's in both
+    trees)."""
+    rng = np.random.default_rng(14)
+    c, s, m = INDEX["partitions"], INDEX["slab"], INDEX["m"]
+    cap, kd = INDEX["cap"], INDEX["k_dims"]
+    members = rng.integers(0, cap, (c, s)).astype(np.int32)
+    members[rng.random((c, s)) < 0.3] = -1
+    sp_idx = np.sort(rng.integers(0, 2000, (cap, kd)), axis=1)
+    sp_val = np.ones((cap, kd), np.float32)
+    return dict(
+        centroids=rng.normal(size=(c, INDEX["d_proj"])).astype(np.float32),
+        books=rng.normal(size=(m, INDEX["centers"], INDEX["d_proj"] // m)
+                         ).astype(np.float32),
+        members=members,
+        codes_list=rng.integers(0, INDEX["centers"], (c, s, m),
+                                dtype=np.uint8),
+        valid_list=(members >= 0) & (rng.random((c, s)) >= 0.05),
+        sp_idx=sp_idx.astype(np.int64), sp_val=sp_val)
+
+
+def _queries(b: int) -> dict:
+    rng = np.random.default_rng(b)
+    idx = np.sort(rng.integers(0, 2000, (b, INDEX["k_dims"])), axis=1)
+    return dict(q_idx=idx.astype(np.int64),
+                q_val=np.ones(idx.shape, np.float32),
+                q_sketch=rng.normal(size=(b, INDEX["d_proj"])).astype(
+                    np.float32))
+
+
+def _pair_rows(rows: int, seed: int) -> dict:
+    """Arxiv feature rows: dense:text f32 [rows, 128], scalar:year."""
+    rng = np.random.default_rng(seed)
+    return {"dense:text": rng.normal(size=(rows, 128)).astype(np.float32),
+            "scalar:year": rng.integers(1990, 2021, rows).astype(np.float32)}
+
+
+def _scorer_params(f: int) -> dict:
+    rng = np.random.default_rng(3)
+    dims = [f, 10, 10, 1]
+    out = {}
+    for i, (d_in, d_out) in enumerate(zip(dims[:-1], dims[1:])):
+        out[f"w{i}"] = rng.normal(size=(d_in, d_out)).astype(np.float32)
+        out[f"b{i}"] = rng.normal(size=(d_out,)).astype(np.float32)
+    return out
 
 
 def time_tree(tree: str) -> dict:
@@ -78,18 +153,36 @@ def time_tree(tree: str) -> dict:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / REPS
 
-    def device_ms(fn) -> float:
+    def device_profile(fn, reps: int = REPS) -> dict:
+        """Device ms, kernels and copies per call (torch.profiler)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(REPS):
+            for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        return sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA) / 1e3 / REPS
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        copies = sum(e.count for e in events
+                     if e.key.startswith(("Memcpy", "Memset")))
+        return dict(device_ms=sum(e.self_device_time_total for e in events)
+                    / 1e3 / reps,
+                    device_kernels=(sum(e.count for e in events) - copies)
+                    / reps,
+                    device_copies=copies / reps)
+
+    def device_ms(fn) -> float:
+        return device_profile(fn)["device_ms"]
+
+    def step_row(fn) -> dict:
+        prof = device_profile(fn)
+        return dict(ms=ms(fn), device_ms=prof["device_ms"],
+                    host_ms=host_ms(fn),
+                    device_kernels_per_call=prof["device_kernels"],
+                    device_copies_per_call=prof["device_copies"])
 
     def host_ms(fn) -> float:
         torch.cuda.synchronize()
@@ -140,7 +233,121 @@ def time_tree(tree: str) -> dict:
             kernel_ms=ms(kernel), kernel_device_ms=device_ms(kernel),
             kernel_host_ms=host_ms(kernel), plain_ms=ms(plain),
             equal=same(kernel(), plain()))
+    out.update(time_steps(torch, dev, step_row))
+    out["neighborhood RPC"] = time_rpc(torch, dev, device_profile)
     return out
+
+
+def time_steps(torch, dev, step_row) -> dict:
+    """The index's query step and the pair scoring step (module doc)."""
+    import inspect as _inspect
+
+    from repro_torch.ann import scann
+    from repro_torch.core import scorer
+    from repro_torch.data.synthetic import OGB_ARXIV_LIKE
+
+    out = {}
+    state = _index_state()
+    on_dev = {k: torch.as_tensor(v).to(dev) for k, v in state.items()}
+    kw = dict(nprobe=INDEX["nprobe"], reorder=INDEX["reorder"], k=INDEX["k"])
+    for b in QUERY_STEP:
+        q = {k: torch.as_tensor(v).to(dev) for k, v in _queries(b).items()}
+
+        def step(q=q):
+            return scann._query_step(*q.values(), *on_dev.values(), **kw)
+
+        row = step_row(step)
+        # the card's step against the same step on the CPU (plain)
+        cpu = scann._query_step(
+            *[torch.as_tensor(v) for v in _queries(b).values()],
+            *[torch.as_tensor(v) for v in state.values()], **kw)
+        got = step()
+        row["equal"] = bool(
+            torch.equal(got[0].cpu(), cpu[0])
+            and torch.equal(got[1].cpu().view(torch.int32),
+                            cpu[1].view(torch.int32)))
+        out[f"_query_step B={b}"] = row
+    spec = OGB_ARXIV_LIKE.spec
+    params = {k: torch.as_tensor(v).to(dev)
+              for k, v in _scorer_params(3).items()}
+    grouped = "group" in _inspect.signature(scorer.score_pairs).parameters
+    for name, (nq, group) in PAIRS.items():
+        fq, fc = _pair_rows(nq, nq), _pair_rows(nq * group, nq + 1)
+        rep = {k: np.repeat(v, group, axis=0) for k, v in fq.items()}
+        aligned = lambda: scorer.score_pairs(params, rep, fc, spec)  # noqa
+        if grouped:
+            rpc = lambda: scorer.score_pairs(  # noqa
+                params, fq, fc, spec, group=group)
+        else:
+            rpc = lambda: scorer.score_pairs(  # noqa
+                params, {k: np.repeat(v, group, axis=0)
+                         for k, v in fq.items()}, fc, spec)
+        cpu = scorer.score_pairs({k: v.cpu() for k, v in params.items()},
+                                 rep, fc, spec)
+        for label, fn in (("aligned", aligned), ("rpc", rpc)):
+            row = step_row(fn)
+            row["equal"] = bool(torch.allclose(fn().cpu(), cpu, rtol=1e-5,
+                                               atol=1e-6))
+            out[f"score_pairs {name} {label}"] = row
+    return out
+
+
+def time_rpc(torch, dev, device_profile) -> dict:
+    """The neighborhood RPC of 16 ids on the chip_smoke.py main-path
+    engine at the arxiv node count: wall, device time, kernels and copies
+    per RPC (median wall of 8 RPCs, then 8 more under torch.profiler,
+    after 2 set-up RPCs), and the answer (ids, weights) to the first
+    set-up RPC, which ``main`` compares between turns."""
+    import dataclasses
+
+    from repro_torch.ann.scann import ScannConfig
+    from repro_torch.core.buckets import BucketConfig
+    from repro_torch.core.gus import DynamicGUS, GusConfig
+    from repro_torch.core.scorer import train_scorer
+    from repro_torch.data.stream import MutationStream, StreamConfig
+    from repro_torch.data.synthetic import (OGB_ARXIV_LIKE, OGB_ARXIV_NODES,
+                                            labeled_pairs, make_dataset)
+
+    n_points = OGB_ARXIV_NODES
+    data = dataclasses.replace(OGB_ARXIV_LIKE, n_points=n_points)
+    cfg = GusConfig(scann_nn=10, scann=ScannConfig(
+        d_proj=64, n_partitions=max(16, n_points // 256), nprobe=8,
+        reorder=128))
+    _, feats, cluster = make_dataset(data)
+    pf, lbl = labeled_pairs(feats, cluster, min(4 * n_points, 20_000),
+                            data.spec, seed=0)
+    stream = MutationStream(data, StreamConfig(seed=0),
+                            bootstrap_fraction=0.6)
+    scorer, _ = train_scorer(0, data.spec, pf, lbl, steps=300, device=dev)
+    gus = DynamicGUS(data.spec, BucketConfig(
+        dense_tables=8, dense_bits=10, set_tables=6, scalar_widths=(2.0,)),
+        scorer, cfg, device=dev)
+    gus.bootstrap(*stream.bootstrap())
+    answer = gus.neighbors_of_ids(stream.query_ids(16))
+    gus.neighbors_of_ids(stream.query_ids(16))
+    walls = []
+    for _ in range(8):
+        qids = stream.query_ids(16)
+        t0 = time.perf_counter()
+        gus.neighbors_of_ids(qids)          # results come back to the host
+        walls.append((time.perf_counter() - t0) * 1e3)
+    work = iter([stream.query_ids(16) for _ in range(9)])
+    prof = device_profile(lambda: gus.neighbors_of_ids(next(work)), reps=8)
+    return dict(points=n_points, slab=gus.index.slab,
+                wall_p50_ms=float(np.median(walls)),
+                device_ms=prof["device_ms"],
+                device_kernels_per_rpc=prof["device_kernels"],
+                device_copies_per_rpc=prof["device_copies"],
+                answer=dict(ids=answer.ids.tolist(),
+                            weights=answer.weights.tolist()))
+
+
+def _same_answer(got: dict, want: dict) -> bool:
+    """Ids exactly, weights within pair_score's tolerance (-inf pads
+    equal)."""
+    return (np.array_equal(got["ids"], want["ids"])
+            and np.allclose(got["weights"], want["weights"], rtol=1e-5,
+                            atol=1e-6))
 
 
 def main() -> int:
@@ -167,7 +374,13 @@ def main() -> int:
             return 1
         times = json.loads(proc.stdout.strip().splitlines()[-1])
         turns.append(dict(tree=label, path=tree, times=times))
-        print(f"[ab] turn {len(turns)} ({label}): " + json.dumps(times))
+        shown = {name: {k: v for k, v in row.items() if k != "answer"}
+                 for name, row in times.items()}
+        print(f"[ab] turn {len(turns)} ({label}): " + json.dumps(shown))
+    rpcs = [t["times"]["neighborhood RPC"] for t in turns]
+    answers = [row.pop("answer") for row in rpcs]
+    for i, row in enumerate(rpcs):
+        row["equal"] = _same_answer(answers[i], answers[-1 if i == 0 else 0])
     bad = [(t["tree"], name) for t in turns for name, row in t["times"].items()
            if not row["equal"]]
     result = dict(card=card, turns=turns, kernels_equal_plain=not bad)

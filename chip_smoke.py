@@ -27,17 +27,24 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    rebuild at matched k on 1,024 live ids drawn with a fixed seed;
 5. hold every kernel against its plain PyTorch version on the card at the
    shapes the paths reached, plus edge cases (fused_query, its int8
-   instance, topk_select and pq_score bitwise, the signs of zeros
-   included; sparse_dot and scorer_mlp within rtol/atol 1e-6), and time
-   kernel, plain version and, for the top-k, ``torch.topk`` with CUDA
-   events (fused_query also at B=256; the top-k above k = 64 against the
-   stable sort, with the route ``ops.topk_select`` takes there);
+   instance, topk_select, pq_score, sparse_dot_batched and
+   sparse_rescore_topk bitwise, the signs of zeros included; sparse_dot
+   at IDF-like weights and scorer_mlp within rtol/atol 1e-6, pair_score
+   within rtol 1e-5 / atol 1e-6), and time kernel, plain
+   version and, for the top-k, ``torch.topk`` with CUDA events, plus each
+   kernel's device time per call from ``torch.profiler`` (fused_query,
+   sparse_rescore_topk and pair_score also at the graph's shapes; the
+   top-k above k = 64 against the stable sort, with the route
+   ``ops.topk_select`` takes there);
 6. print one JSON line with each kernel's numbers, then the result line.
 
 Phases 2-4 each zero the kernel launch counts just before they start and
 read them just after; every kernel a phase runs must have launched in it.
-``pq_score`` (shared codes) has no caller on any path; its launches are
-counted around one call in phase 5.
+The paths reach the exact rescore through ``sparse_rescore_topk`` and
+pair scoring through ``pair_score``; the standalone kernels of the same
+TPU kernels (``sparse_dot_batched``, ``scorer_mlp``) and ``pq_score``
+(shared codes) have no caller on a path, so their launches are counted
+around one call each in phase 5.
 
 It imports nothing of JAX and nothing of the reference package.
 """
@@ -80,6 +87,29 @@ def _time_ms(fn, torch) -> float:
     return start.elapsed_time(end) / REPS
 
 
+def _device_ms(fn, torch) -> float:
+    """Device time of one call (the sum of its kernels and copies), from
+    torch.profiler over REPS calls after a warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPS):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / REPS
+
+
+def _timed(torch, kernel, plain, **extra) -> dict:
+    """Events ms and device ms of the kernel, events ms of its plain
+    version."""
+    return dict(ms=_time_ms(kernel, torch), device_ms=_device_ms(kernel, torch),
+                plain_ms=_time_ms(plain, torch), **extra)
+
+
 def _bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_OPS_PER_S * 1e3
@@ -108,8 +138,10 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
     at its edge and split cases, in both of the reference's orders (the
     inputs come from ``repro_torch.kernels.cases``, shared with the card
     tests)."""
+    from repro_torch.core.scorer import pair_layout
     from repro_torch.kernels import (cases, fused_query, ops, pq_score,
                                      scorer_mlp, sparse_dot, topk_select)
+    from repro_torch.kernels.ref import DENSE, SET
 
     def on_card(arrays):
         return [torch.as_tensor(a).to(dev) for a in arrays]
@@ -153,17 +185,19 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
         report["fused_query" if name == "main" else
                f"fused_query {name}"] = dict(
             shape=f"B={b} N={n} M={m} C={c} k={k}", max_abs_err=err,
-            ms=_time_ms(lambda: fused_query.fused_query_kernel(*args, k),
-                        torch),
-            plain_ms=_time_ms(lambda: fused_query.fused_query_plain(*args, k),
-                              torch),
+            **_timed(torch,
+                     lambda: fused_query.fused_query_kernel(*args, k),
+                     lambda: fused_query.fused_query_plain(*args, k)),
             bound_ms=bound, bound_by=by)
     main_k = fq_args["main"][1]
 
-    # sparse_dot (both forms): bitwise at unit weights, rtol/atol 1e-6 with
-    # IDF-like weights. A sparse entry is a u32 index and an f32 value: the
+    # sparse_dot (both forms): per-query rows bitwise at any weights (the
+    # plain version sums in the kernel's order); the shared db bitwise at
+    # unit weights, rtol/atol 1e-6 with IDF-like weights. A sparse entry is a u32 index and an f32 value: the
     # function needs 8 bytes of it (the port holds indices in int64 and the
-    # kernel reads their low words)
+    # kernel reads their low words). No path calls sparse_dot_batched (the
+    # rescore runs sparse_rescore_topk): its launches are counted around
+    # its first call here
     kd = shapes["k_dims"]
     forms = {"sparse_dot_batched": (
                  sparse_dot.sparse_dot_batched, 40,
@@ -174,10 +208,18 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
         for unit in (True, False):
             args = on_card([*cases.sparse_rows(rng, q_shape, vocab, unit),
                             *cases.sparse_rows(rng, db_shape, vocab, unit)])
+            before = fn.launches
             got = fn(*args)
+            launches = fn.launches - before
             want = sparse_dot.sparse_dot_plain(*args)
             torch.cuda.synchronize()
-            if unit:
+            if fn is sparse_dot.sparse_dot_batched:
+                # per-query rows: the plain version sums in the kernel's
+                # order, so any weights agree bit for bit
+                if not torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32)):
+                    raise AssertionError(f"{name} differs (unit={unit})")
+            elif unit:
                 if not torch.equal(got, want):
                     raise AssertionError(f"{name} differs at unit weights")
             else:
@@ -191,9 +233,43 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
         report[name] = dict(
             shape=f"q={q_shape} db={db_shape}",
             max_abs_err=_max_abs_err(got, want),
-            ms=_time_ms(lambda: fn(*args), torch),
-            plain_ms=_time_ms(lambda: sparse_dot.sparse_dot_plain(*args),
-                              torch),
+            **_timed(torch, lambda: fn(*args),
+                     lambda: sparse_dot.sparse_dot_plain(*args)),
+            bound_ms=bound, bound_by=by, launches=launches)
+
+    # sparse_rescore_topk: the shortlist's slots, slab rows, exact sparse
+    # dot, mask and final top-k of the main path's search (16 queries,
+    # k = scann_nn + 1) and of graph seeding (256 queries, k = probe + 1)
+    # over the index's N, reorder and capacity; unit values (ties across
+    # shortlist positions) and IDF-like ones, bitwise
+    n, r, cap = shapes["fq_n"], shapes["reorder"], shapes["capacity"]
+    for name, (b, k) in (("sparse_rescore_topk", shapes["rescore"]),
+                         ("sparse_rescore_topk graph",
+                          shapes["rescore_graph"])):
+        for unit in (True, False):
+            case = cases.rescore_inputs(rng, b, n, r, cap, kd, 40, unit)
+            args = on_card([case[a] for a in cases.RESCORE_ORDER])
+            got = ops.sparse_rescore_topk(*args, k)
+            want = sparse_dot.sparse_rescore_topk_plain(*args, k)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], want[0]) and torch.equal(
+                    got[1].view(torch.int32), want[1].view(torch.int32))):
+                raise AssertionError(f"{name} differs from its plain "
+                                     f"version (unit={unit})")
+            print(f"[kernels] {name} B={b} r={r} k={k} unit={unit}: "
+                  f"bitwise equal")
+        # q, shortlist (position, score), the slot of each entry, the
+        # slab rows of the live entries, out (slot, dist)
+        short_slots = torch.gather(args[2], 1, args[3].long())
+        live = int((torch.isfinite(args[4]) & (short_slots >= 0)).sum())
+        bound, by = _bound_ms(b * kd * 8 + b * r * 8 + b * r * 4
+                              + live * kd * 8 + b * k * 8,
+                              live * kd * kd + b * r)
+        report[name] = dict(
+            shape=f"B={b} N={n} r={r} K={kd} k={k} cap={cap}",
+            max_abs_err=_max_abs_err(got[1], want[1]),
+            **_timed(torch, lambda: ops.sparse_rescore_topk(*args, k),
+                     lambda: sparse_dot.sparse_rescore_topk_plain(*args, k)),
             bound_ms=bound, bound_by=by)
 
     # fused_query_int8: the same cases through the int8 table (quantised on
@@ -219,10 +295,9 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
         b * m * c + b * n * (m + 1) + b * n)
     report["fused_query_int8"] = dict(
         shape=f"B={b} N={n} M={m} C={c} k={main_k}", max_abs_err=err,
-        ms=_time_ms(lambda: fused_query.fused_query_kernel_int8(
-            *int8_args, main_k), torch),
-        plain_ms=_time_ms(lambda: fused_query.fused_query_int8_plain(
-            *int8_args, main_k), torch),
+        **_timed(torch, lambda: fused_query.fused_query_kernel_int8(
+            *int8_args, main_k), lambda: fused_query.fused_query_int8_plain(
+            *int8_args, main_k)),
         bound_ms=bound, bound_by=by)
 
     # topk_select through ops.topk_select (the reference's order for each
@@ -251,9 +326,8 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
             report[f"topk_select {name}"] = dict(
                 shape=f"B={b} N={n} k={k}",
                 max_abs_err=_max_abs_err(got[0], want[0]),
-                ms=_time_ms(lambda: ops.topk_select(scores, k), torch),
-                plain_ms=_time_ms(lambda: topk_select.topk_select_plain(
-                    scores, k), torch),
+                **_timed(torch, lambda: ops.topk_select(scores, k),
+                         lambda: topk_select.topk_select_plain(scores, k)),
                 library_ms=_time_ms(lambda: torch.topk(scores, k), torch),
                 bound_ms=bound, bound_by=by)
 
@@ -314,15 +388,17 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
         report[name] = dict(
             shape=f"B={b} N={n} M={m} C={c}",
             max_abs_err=_max_abs_err(got, want),
-            ms=_time_ms(lambda: fn(lut, codes), torch),
-            plain_ms=_time_ms(lambda: pq_score.pq_score_plain(lut, codes),
-                              torch),
+            **_timed(torch, lambda: fn(lut, codes),
+                     lambda: pq_score.pq_score_plain(lut, codes)),
             bound_ms=bound, bound_by=by, launches=launches)
 
-    # scorer_mlp: 16 queries x 10 neighbors of arxiv pair features
+    # scorer_mlp: 16 queries x 10 neighbors of arxiv pair features (no
+    # path calls it: pair_score scores the pairs; launches counted here)
     b, f, h = shapes["mlp"]
     args = on_card(cases.scorer_inputs(rng, b, f, h))
+    before = scorer_mlp.scorer_mlp.launches
     got = scorer_mlp.scorer_mlp(*args)
+    launches = scorer_mlp.scorer_mlp.launches - before
     want = scorer_mlp.scorer_mlp_plain(*args)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
@@ -333,19 +409,54 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
                           b * (2 * f * h + 2 * h * h + 2 * h + 3 * h + 4))
     report["scorer_mlp"] = dict(
         shape=f"B={b} F={f} H={h}", max_abs_err=_max_abs_err(got, want),
-        ms=_time_ms(lambda: scorer_mlp.scorer_mlp(*args), torch),
-        plain_ms=_time_ms(lambda: scorer_mlp.scorer_mlp_plain(*args), torch),
-        bound_ms=bound, bound_by=by)
+        **_timed(torch, lambda: scorer_mlp.scorer_mlp(*args),
+                 lambda: scorer_mlp.scorer_mlp_plain(*args)),
+        bound_ms=bound, bound_by=by, launches=launches)
+
+    # pair_score: the pair features and the MLP of the main path's 16
+    # queries x 10 neighbors and of a graph seeding chunk (256 x probe
+    # 16), on feature rows of the path's spec; rtol 1e-5, atol 1e-6
+    spec = shapes["spec"]
+    keys, layout = pair_layout(spec)
+    weights = on_card(cases.scorer_inputs(rng, 1, layout.n_features, h)[1:])
+    for name, (p, group) in (("pair_score", shapes["pair"]),
+                             ("pair_score graph", shapes["pair_graph"])):
+        fq = cases.feature_rows(rng, spec, p // group)
+        fc = cases.feature_rows(rng, spec, p)
+        q = on_card([fq[key] for key in keys])
+        c = on_card([fc[key] for key in keys])
+        got = scorer_mlp.pair_score(q, c, layout, group, *weights)
+        want = scorer_mlp.pair_score_plain(q, c, layout, group, *weights)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        print(f"[kernels] {name} P={p} group={group}: max_abs_err "
+              f"{_max_abs_err(got, want)!r}")
+        row_bytes = sum(4 * d for d in layout.dims)
+        f = layout.n_features
+        per_pair = sum(9 * d if kind == DENSE else d * d if kind == SET
+                       else 2 for kind, d in zip(layout.kinds, layout.dims))
+        bound, by = _bound_ms(
+            (p // group + p) * row_bytes + 4 * sum(w.numel() for w in weights)
+            + p * 4,
+            p * (per_pair + 2 * f * h + 2 * h * h + 2 * h + 3 * h + 4))
+        report[name] = dict(
+            shape=f"P={p} group={group} dims={layout.dims} F={f} H={h}",
+            max_abs_err=_max_abs_err(got, want),
+            **_timed(torch, lambda: scorer_mlp.pair_score(q, c, layout, group,
+                                                          *weights),
+                     lambda: scorer_mlp.pair_score_plain(q, c, layout, group,
+                                                         *weights)),
+            bound_ms=bound, bound_by=by)
     return report
 
 
 # ---------------------------------------------------------------- phase 2
 
 def profile_rpcs(torch, gus, stream, n: int = 4, label: str = "") -> dict:
-    """Device time by kernel, and the device's idle share, over ``n``
-    neighborhood RPCs and ``n`` mutation RPCs under torch.profiler (with a
-    maintained graph: fast-path reads, and mutations with their graph
-    tick)."""
+    """Device time by kernel, device kernel launches and copies per RPC,
+    and the device's idle share, over ``n`` neighborhood RPCs and ``n``
+    mutation RPCs under torch.profiler (with a maintained graph: fast-path
+    reads, and mutations with their graph tick)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -371,8 +482,13 @@ def profile_rpcs(torch, gus, stream, n: int = 4, label: str = "") -> dict:
         busy_ms = sum(e.self_device_time_total for e in events) / 1e3
         top = sorted(events, key=lambda e: e.self_device_time_total,
                      reverse=True)[:8]
+        copies = sum(e.count for e in events
+                     if e.key.startswith(("Memcpy", "Memset")))
         out[rpc] = dict(
             wall_ms_per_rpc=wall_ms / n, device_ms_per_rpc=busy_ms / n,
+            device_kernels_per_rpc=(sum(e.count for e in events)
+                                    - copies) / n,
+            device_copies_per_rpc=copies / n,
             device_idle_share=1.0 - busy_ms / wall_ms,
             top=[(e.key[:60], e.count // n,
                   e.self_device_time_total / 1e3 / n) for e in top])
@@ -460,11 +576,16 @@ def run_main_path(torch, n_points: int, dev) -> tuple[dict, dict]:
 
     mut = gus.mutation_timer.summary()
     qry = gus.query_timer.summary()
+    # a 16-id RPC searches k = scann_nn + 1 (its own id is dropped) and
+    # scores 16 x scann_nn pairs, each query row once for its neighbors
     shapes = dict(fq_b=16, fq_n=cfg.scann.nprobe * gus.index.slab,
                   reorder=cfg.scann.reorder, k_dims=gus.embedder.k_max,
+                  capacity=gus.index.capacity,
+                  rescore=(16, cfg.scann_nn + 1),
                   sd_b=len(qids), sd_n=brute.capacity,
                   mlp=(16 * cfg.scann_nn, scorer["w0"].shape[0],
-                       scorer["w0"].shape[1]))
+                       scorer["w0"].shape[1]),
+                  spec=data.spec, pair=(16 * cfg.scann_nn, cfg.scann_nn))
     out = dict(n_points=n_points, bootstrapped=len(boot_ids),
                live=len(live), slab=gus.index.slab,
                capacity=gus.index.capacity, bootstrap_s=boot_s,
@@ -476,8 +597,8 @@ def run_main_path(torch, n_points: int, dev) -> tuple[dict, dict]:
                launches=counts)
     print("[main] " + json.dumps(out))
     profile_rpcs(torch, gus, stream)
-    _require_launched(counts, ("fused_query", "sparse_dot_batched",
-                               "sparse_dot", "scorer_mlp"), "the main path")
+    _require_launched(counts, ("fused_query", "sparse_rescore_topk",
+                               "sparse_dot", "pair_score"), "the main path")
     if not same_rate > 0.7:
         raise AssertionError(f"same-cluster rate {same_rate} <= 0.7")
     ctx = dict(gus=gus, qids=qids, exact=(bids, bd), data=data,
@@ -486,9 +607,15 @@ def run_main_path(torch, n_points: int, dev) -> tuple[dict, dict]:
 
 
 def _require_launched(counts: dict, names, where: str) -> None:
+    """Every kernel in ``names`` launched on ``where``, and neither
+    standalone kernel that the fused steps replace on the paths."""
     missing = [n for n in names if counts[n] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on {where}: {missing}")
+    stale = [n for n in ("sparse_dot_batched", "scorer_mlp") if counts[n]]
+    if stale:
+        raise AssertionError(f"{where} launched {stale}: the rescore and "
+                             f"the pair scoring run fused")
 
 
 def _recall_at_10(exact, found) -> float:
@@ -545,7 +672,7 @@ def run_index_configs(torch, ctx: dict) -> dict:
     print("[configs] unfused == fused and int8 unfused == int8 fused, "
           "bitwise; " + json.dumps(out))
     _require_launched(counts, ("fused_query", "fused_query_int8",
-                               "pq_score_batched", "sparse_dot_batched"),
+                               "pq_score_batched", "sparse_rescore_topk"),
                       "the index configurations")
     return out
 
@@ -691,12 +818,15 @@ def run_graph_path(torch, dev, ctx: dict) -> tuple[dict, dict]:
     out["profile"] = profile_rpcs(torch, gus, stream, n=2, label="graph ")
     out["host_top"] = host_profile(torch, gus, stream, n=2)
     _require_launched(counts, ("topk_select", "fused_query",
-                               "sparse_dot_batched", "scorer_mlp"),
+                               "sparse_rescore_topk", "pair_score"),
                       "the graph path")
     if not recall > 0.5:
         raise AssertionError(f"edge recall {recall} <= 0.5")
+    # seeding chunks of 256 ids search k = probe + 1 and score 256 x probe
+    probe = gus.graph.cfg.probe_k()
     shapes = dict(merge=(1024, gus.graph.width + 64, gus.graph.width),
-                  read=(16, gus.graph.width, k))
+                  read=(16, gus.graph.width, k), rescore=(256, probe + 1),
+                  pair=(256 * probe, probe))
     return out, shapes
 
 
@@ -705,12 +835,17 @@ SOURCES = {  # kernel -> (CUDA source, TPU kernel it replaces, path)
                     "src/repro/kernels/fused_query.py:172", "main"),
     "fused_query_int8": ("src/repro_torch/kernels/csrc/fused_query.cu",
                          "src/repro/kernels/fused_query.py:203", "configs"),
+    "sparse_rescore_topk": ("src/repro_torch/kernels/csrc/sparse_dot.cu",
+                            "src/repro/kernels/sparse_dot.py:39", "main"),
     "sparse_dot_batched": ("src/repro_torch/kernels/csrc/sparse_dot.cu",
-                           "src/repro/kernels/sparse_dot.py:39", "main"),
+                           "src/repro/kernels/sparse_dot.py:39",
+                           "kernel check"),
     "sparse_dot": ("src/repro_torch/kernels/csrc/sparse_dot.cu",
                    "src/repro/kernels/sparse_dot.py:68", "main"),
-    "scorer_mlp": ("src/repro_torch/kernels/csrc/scorer_mlp.cu",
+    "pair_score": ("src/repro_torch/kernels/csrc/scorer_mlp.cu",
                    "src/repro/kernels/scorer_mlp.py:33", "main"),
+    "scorer_mlp": ("src/repro_torch/kernels/csrc/scorer_mlp.cu",
+                   "src/repro/kernels/scorer_mlp.py:33", "kernel check"),
     "topk_select": ("src/repro_torch/kernels/csrc/topk_select.cu",
                     "src/repro/kernels/topk_select.py:42", "graph"),
     "pq_score_batched": ("src/repro_torch/kernels/csrc/pq_score.cu",
@@ -745,7 +880,9 @@ def main() -> int:
     graph, graph_shapes = run_graph_path(torch, dev, ctx)
     del ctx
     shapes.update(topk_merge=graph_shapes["merge"],
-                  topk_read=graph_shapes["read"])
+                  topk_read=graph_shapes["read"],
+                  rescore_graph=graph_shapes["rescore"],
+                  pair_graph=graph_shapes["pair"])
     report = check_kernels(torch, dev, shapes)
 
     path_counts = {"main": main_path["launches"],
@@ -760,11 +897,13 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches, launches_in=path,
+            launches_graph=path_counts["graph"][name],
             max_abs_err=rep["max_abs_err"], ms=rep["ms"],
-            plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
-            bound_by=rep["bound_by"], library_ms=rep.get("library_ms"),
-            shape=rep["shape"]))
-    for extra in ("topk_select read", "fused_query B=256"):
+            device_ms=rep["device_ms"], plain_ms=rep["plain_ms"],
+            bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
+            library_ms=rep.get("library_ms"), shape=rep["shape"]))
+    for extra in ("topk_select read", "fused_query B=256",
+                  "sparse_rescore_topk graph", "pair_score graph"):
         print(f"[kernels] {extra}: " + json.dumps(report[extra]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

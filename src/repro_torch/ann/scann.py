@@ -4,7 +4,7 @@ rescore (port of ``repro/ann/scann.py``).
   sparse embedding --CountSketch--> sketch
       --centroid matmul--> top-``nprobe`` partitions
       --fused PQ shortlist kernel over partition slabs--> ``reorder`` cands
-      --exact sparse rescore kernel--> final top-k.
+      --exact sparse rescore + top-k kernel--> final top-k.
 
 Storage discipline, as in the reference: one global slab row per point
 (the padded sparse row, by slot); per-(partition, position) PQ codes
@@ -14,10 +14,10 @@ and per-partition free lists, so the slot and slab layout depend only on
 the operation sequence.
 
 Every ``lax.top_k`` of the reference is a stable descending sort here
-(``kernels.ref.topk_ref``) or the ``topk_select`` kernel: ties go to the
-lowest index, as they do there. The reference's ``use_kernels`` switch
-has no counterpart: the device decides (kernels on the card, their plain
-versions on the CPU).
+(``kernels.ref.topk_ref``) or a kernel's selection (``topk_select``, the
+rescore's): ties go to the lowest index, as they do there. The
+reference's ``use_kernels`` switch has no counterpart: the device decides
+(kernels on the card, their plain versions on the CPU).
 """
 from __future__ import annotations
 
@@ -101,19 +101,10 @@ def _query_step(q_idx, q_val, q_sketch, centroids, books, members,
         short_scores, short_pos = ops.topk_select(approx, r)
         short_scores = ops.dedup_mask(short_scores, short_pos, flat_slots,
                                       flat_valid)
-    short_slots = torch.gather(flat_slots, 1, short_pos.long())
-    # -inf = invalid or duplicate SOAR copy; both drop out of the rescore
-    short_slots = torch.where(torch.isfinite(short_scores), short_slots, -1)
-
-    # 4) exact sparse-space rescore of the shortlist
-    safe = short_slots.clamp(min=0).long()
-    exact = ops.sparse_dot_batched(q_idx, q_val, sp_idx[safe], sp_val[safe])
-    exact = torch.where(short_slots >= 0, exact, float("-inf"))
-
-    final_scores, pos = topk_ref(exact, min(k, r))
-    final_slots = torch.gather(short_slots, 1, pos)
-    final_slots = torch.where(torch.isfinite(final_scores), final_slots, -1)
-    return final_slots, -final_scores
+    # 4) exact sparse-space rescore of the shortlist (-inf entries, invalid
+    # or a duplicate SOAR copy, drop out) and the final top-k, one kernel
+    return ops.sparse_rescore_topk(q_idx, q_val, flat_slots, short_pos,
+                                   short_scores, sp_idx, sp_val, k)
 
 
 class ScannIndex:

@@ -266,12 +266,11 @@ class DynamicGUS:
         if exclude_ids is not None:
             ids, dists = _drop_self(ids, dists, np.asarray(exclude_ids), k)
         cand_feats = self.store.gather(ids)
-        flat_q = {kk: np.repeat(np.asarray(v), ids.shape[1], axis=0)
-                  for kk, v in features.items()}
         flat_c = {kk: v.reshape((-1,) + v.shape[2:])
                   for kk, v in cand_feats.items()}
-        weights = score_pairs(self.scorer_params, flat_q, flat_c,
-                              self.spec).cpu().numpy()
+        # each query row is read once for its ids.shape[1] candidates
+        weights = score_pairs(self.scorer_params, features, flat_c,
+                              self.spec, group=ids.shape[1]).cpu().numpy()
         weights = weights.reshape(ids.shape)
         weights = np.where(ids >= 0, weights, -np.inf)
         return NeighborResult(ids=ids, weights=weights.astype(np.float32),

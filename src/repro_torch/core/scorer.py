@@ -3,8 +3,9 @@
 A two-layer tanh network (10 hidden units per layer) over per-pair
 similarity features, trained offline with BCE on labeled pairs (§4.3) and
 served over the candidates the index returns. ``score_pairs`` is the one
-public scoring entry point; it goes through ``kernels.ops.scorer_mlp``
-(the CUDA kernel for tensors on the card, its plain version on the CPU).
+public scoring entry point; it goes through ``kernels.ops.pair_score``
+(the pair features and the MLP in one CUDA kernel for tensors on the
+card, its plain version, ``pair_features`` then the MLP, on the CPU).
 ``scorer_apply`` is the plain MLP of training.
 
 ``train_scorer`` runs PyTorch autograd through the plain MLP with AdamW
@@ -21,8 +22,10 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from repro_torch.core.types import FeatureSpec, PAD_ITEM
+from repro_torch.core.types import FeatureSpec
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import (DENSE, FIELD_DTYPES, SCALAR, SET,
+                                     pair_features_ref)
 from repro_torch.utils.device import resolve
 
 
@@ -36,35 +39,27 @@ def _tensor(v, device):
     return v.to(device)
 
 
+def pair_layout(spec: FeatureSpec) -> tuple[list, ops.PairLayout]:
+    """The feature keys of a pair and their layout, in the order of the
+    features: dense groups by sorted name (cosine, scaled L2), then set
+    groups (Jaccard, log1p of the overlap), then scalars."""
+    groups = ([(f"dense:{n}", DENSE, spec.dense[n]) for n in sorted(spec.dense)]
+              + [(f"set:{n}", SET, spec.sets[n]) for n in sorted(spec.sets)]
+              + [(f"scalar:{n}", SCALAR, 1) for n in sorted(spec.scalars)])
+    return ([key for key, _, _ in groups],
+            ops.PairLayout(tuple(kind for _, kind, _ in groups),
+                           tuple(dim for _, _, dim in groups)))
+
+
 def pair_features(fa: Mapping, fb: Mapping, spec: FeatureSpec,
                   device=None) -> torch.Tensor:
     """Per-pair similarity signals, f32 [B, F]. fa/fb are aligned batches
     (numpy arrays or tensors)."""
     device = resolve(device)
-    feats = []
-    for name in sorted(spec.dense):
-        a = _tensor(fa[f"dense:{name}"], device)
-        b = _tensor(fb[f"dense:{name}"], device)
-        na = torch.linalg.norm(a, dim=-1) + 1e-9
-        nb = torch.linalg.norm(b, dim=-1) + 1e-9
-        feats.append((a * b).sum(-1) / (na * nb))                     # cosine
-        feats.append(-torch.linalg.norm(a - b, dim=-1) / (na + nb))    # scaled L2
-    for name in sorted(spec.sets):
-        a = _tensor(fa[f"set:{name}"], device)
-        b = _tensor(fb[f"set:{name}"], device)
-        va, vb = a != PAD_ITEM, b != PAD_ITEM
-        inter = ((a[:, :, None] == b[:, None, :]) & va[:, :, None]
-                 & vb[:, None, :]).sum((1, 2)).to(torch.float32)
-        size_a = va.sum(-1).to(torch.float32)
-        size_b = vb.sum(-1).to(torch.float32)
-        union = (size_a + size_b - inter).clamp(min=1.0)
-        feats.append(inter / union)                                    # Jaccard
-        feats.append(torch.log1p(inter))                               # overlap
-    for name in sorted(spec.scalars):
-        a = _tensor(fa[f"scalar:{name}"], device)
-        b = _tensor(fb[f"scalar:{name}"], device)
-        feats.append(-(a - b).abs())
-    return torch.stack(feats, -1)
+    keys, layout = pair_layout(spec)
+    return pair_features_ref([_tensor(fa[key], device) for key in keys],
+                             [_tensor(fb[key], device) for key in keys],
+                             layout.kinds)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,11 +97,19 @@ def scorer_apply(params: dict, feats: torch.Tensor) -> torch.Tensor:
     return torch.sigmoid(_logits(params, feats))
 
 
-def score_pairs(params: dict, fa, fb, spec: FeatureSpec) -> torch.Tensor:
-    """Edge weights in [0, 1] for aligned feature batches fa/fb, on the
-    device of the params, through the scorer kernel."""
-    return ops.scorer_mlp(pair_features(fa, fb, spec, params["w0"].device),
-                          params)
+def score_pairs(params: dict, fa, fb, spec: FeatureSpec,
+                group: int = 1) -> torch.Tensor:
+    """Edge weights in [0, 1] for feature batches fa/fb, on the device of
+    the params, through the pair-score kernel (features and MLP in one
+    launch). Row p of fb pairs with row ``p // group`` of fa: aligned
+    batches by default, or each query row of fa once for its ``group``
+    candidate rows."""
+    dev = params["w0"].device
+    keys, layout = pair_layout(spec)
+    dtypes = [FIELD_DTYPES[kind] for kind in layout.kinds]
+    q = [_tensor(fa[key], dev).to(dt) for key, dt in zip(keys, dtypes)]
+    c = [_tensor(fb[key], dev).to(dt) for key, dt in zip(keys, dtypes)]
+    return ops.pair_score(params, q, c, layout, group)
 
 
 # ---------------------------------------------------------------- training

@@ -1,13 +1,15 @@
 """Inputs that hold each kernel against its plain version: seeded numpy
-arrays at a given shape, plus the fused shortlist's edge cases (those of
-``tests/test_kernels_fused.py``) and the top-k selection's. ``tests/test_torch_kernels_cuda.py`` and
-``chip_smoke.py`` both draw from here, so the cases live in one place.
+arrays at a given shape (the rescore step's, feature rows for the pair
+score), plus the fused shortlist's edge cases (those of
+``tests/test_kernels_fused.py``) and the top-k selection's.
+``tests/test_torch_kernels_cuda.py`` and ``chip_smoke.py`` both draw from
+here, so the cases live in one place.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.core.types import PAD_INDEX
+from repro_torch.core.types import PAD_INDEX, PAD_ITEM
 
 FQ_ORDER = ("lut", "codes", "ids", "valid", "bias")
 
@@ -58,6 +60,50 @@ def sparse_rows(rng, shape, vocab: int, unit: bool):
            else (rng.random(shape) * 3 + 0.1).astype(np.float32))
     val[..., -2:] = 0.0
     return idx, val
+
+
+RESCORE_ORDER = ("q_idx", "q_val", "flat_slots", "short_pos",
+                 "short_scores", "sp_idx", "sp_val")
+
+
+def rescore_inputs(rng, b: int, n: int, r: int, cap: int, kd: int,
+                   vocab: int, unit: bool) -> dict:
+    """The index's rescore step at B queries, N probed candidates, a
+    shortlist of r and a slab of ``cap`` rows of Kq = Kd = ``kd`` entries
+    (``sparse_rows``: a small ``vocab`` with unit values makes exact ties
+    across shortlist positions). 10% of the candidates are empty slots
+    (-1) and 15% of the shortlist is -inf (tombstoned or a SOAR copy);
+    row 0's shortlist is all -inf."""
+    flat_slots = rng.integers(0, cap, (b, n)).astype(np.int32)
+    flat_slots[rng.random((b, n)) < 0.1] = -1
+    short_pos = np.stack([rng.choice(n, r, replace=False)
+                          for _ in range(b)]).astype(np.int32)
+    short_scores = -np.sort(rng.random((b, r)).astype(np.float32), axis=1)
+    short_scores[rng.random((b, r)) < 0.15] = -np.inf
+    short_scores[0] = -np.inf
+    q_idx, q_val = sparse_rows(rng, (b, kd), vocab, unit)
+    sp_idx, sp_val = sparse_rows(rng, (cap, kd), vocab, unit)
+    return dict(q_idx=q_idx, q_val=q_val, flat_slots=flat_slots,
+                short_pos=short_pos, short_scores=short_scores,
+                sp_idx=sp_idx, sp_val=sp_val)
+
+
+def feature_rows(rng, spec, rows: int) -> dict:
+    """Feature rows of a ``FeatureSpec`` as the feature store holds them:
+    dense f32 normal, sets int32 items from a pool of 40 with a ragged
+    ``PAD_ITEM`` tail (some rows empty), scalars f32 years."""
+    out = {}
+    for name, dim in spec.dense.items():
+        out[f"dense:{name}"] = rng.normal(size=(rows, dim)).astype(np.float32)
+    for name, cap in spec.sets.items():
+        items = rng.integers(0, 40, (rows, cap)).astype(np.int32)
+        size = rng.integers(0, cap + 1, rows)
+        items[np.arange(cap)[None, :] >= size[:, None]] = PAD_ITEM
+        out[f"set:{name}"] = items
+    for name in spec.scalars:
+        out[f"scalar:{name}"] = rng.integers(1990, 2021, rows).astype(
+            np.float32)
+    return out
 
 
 def scorer_inputs(rng, b: int, f: int, h: int) -> list:

@@ -22,13 +22,16 @@ from repro_torch.kernels.ref import shortlist_dedup_ref
 KERNELS = {"fused_query": _fq.fused_query_kernel,
            "fused_query_int8": _fq.fused_query_kernel_int8,
            "sparse_dot_batched": _sd.sparse_dot_batched,
+           "sparse_rescore_topk": _sd.sparse_rescore_topk,
            "sparse_dot": _sd.sparse_dot,
            "scorer_mlp": _mlp.scorer_mlp,
+           "pair_score": _mlp.pair_score,
            "topk_select": _tk.topk_select,
            "pq_score_batched": _pq.pq_score_batched,
            "pq_score": _pq.pq_score}
 
 quantize_lut = _fq.quantize_lut
+PairLayout = _mlp.PairLayout
 
 
 def launch_counts() -> dict[str, int]:
@@ -115,7 +118,30 @@ def sparse_dot_batched(q_idx, q_val, db_idx, db_val) -> torch.Tensor:
     return _sd.sparse_dot_batched(q_idx, q_val, db_idx, db_val)
 
 
+def sparse_rescore_topk(q_idx, q_val, flat_slots, short_pos, short_scores,
+                        sp_idx, sp_val, k: int):
+    """The index's exact rescore and final top-k in one launch: shortlist
+    slots flat_slots[b, short_pos] (-1 where short_scores is -inf), the
+    exact sparse dot of each with the query row, then the top
+    k' = min(k, r) in ``lax.top_k``'s order -> (final_slots i32 [B, k'],
+    dists f32 [B, k'] = -score; -1 / +inf where the score is -inf)."""
+    return _sd.sparse_rescore_topk(q_idx, q_val, flat_slots, short_pos,
+                                   short_scores, sp_idx, sp_val, k)
+
+
 def scorer_mlp(feats, params: dict) -> torch.Tensor:
     """Fused paper-scorer: feats [B, F] + core.scorer params -> f32 [B]."""
-    return _mlp.scorer_mlp(feats, params["w0"], params["b0"], params["w1"],
-                           params["b1"], params["w2"], params["b2"])
+    return _mlp.scorer_mlp(feats, *_mlp_weights(params))
+
+
+def pair_score(params: dict, q_fields, c_fields, layout, group: int
+               ) -> torch.Tensor:
+    """Pair features and the scorer MLP in one launch: pair p is candidate
+    row p of ``c_fields`` against query row ``p // group`` of ``q_fields``
+    (one tensor per group of the ``PairLayout``) -> f32 [P]."""
+    return _mlp.pair_score(q_fields, c_fields, layout, group,
+                           *_mlp_weights(params))
+
+
+def _mlp_weights(params: dict) -> list:
+    return [params[name] for name in ("w0", "b0", "w1", "b1", "w2", "b2")]

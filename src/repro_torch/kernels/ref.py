@@ -9,7 +9,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.types import PAD_INDEX
+from repro_torch.core.types import PAD_INDEX, PAD_ITEM
+
+# feature group kinds of a pair (``pair_features_ref``, the pair-score
+# kernel) and the dtype of their fields
+DENSE, SET, SCALAR = 0, 1, 2
+FIELD_DTYPES = {DENSE: torch.float32, SET: torch.int32, SCALAR: torch.float32}
 
 
 def topk_ref(scores: torch.Tensor, k: int):
@@ -42,6 +47,52 @@ def sparse_dot_batched_ref(q_idx, q_val, db_idx, db_val) -> torch.Tensor:
         & (q_idx[:, None, :, None] != PAD_INDEX)
     prod = q_val[:, None, :, None].float() * db_val[:, :, None, :].float()
     return torch.where(eq, prod, 0.0).sum((2, 3))
+
+
+def sparse_dot_seq_ref(q_idx, q_val, db_idx, db_val) -> torch.Tensor:
+    """Per-query rows in the rescore kernel's order (the bitwise contract
+    of ``sparse_rescore_topk``): db entry j outer, query entry i inner,
+    one rounded product and one rounded add each; a non-match adds +0.0,
+    which leaves a sum that starts at +0.0 unchanged.
+    q [B,Kq] vs db [B,R,Kd] -> [B, R]."""
+    acc = torch.zeros(db_idx.shape[:2], dtype=torch.float32,
+                      device=q_val.device)
+    live = q_idx != PAD_INDEX
+    for j in range(db_idx.shape[2]):
+        dj, dv = db_idx[:, :, j], db_val[:, :, j].float()
+        for i in range(q_idx.shape[1]):
+            hit = (q_idx[:, i:i + 1] == dj) & live[:, i:i + 1]
+            acc = acc + torch.where(hit, q_val[:, i:i + 1].float() * dv, 0.0)
+    return acc
+
+
+def pair_features_ref(qa: list, cb: list, kinds) -> torch.Tensor:
+    """Per-pair similarity signals f32 [P, F] of aligned rows (the
+    formulas of ``repro/core/scorer.py::pair_features``): per group of
+    ``kinds`` (``DENSE``: cosine and scaled L2; ``SET``: Jaccard and
+    log1p of the overlap; ``SCALAR``: minus the absolute difference),
+    ``qa[g]``/``cb[g]`` the group's two sides."""
+    feats = []
+    for a, b, kind in zip(qa, cb, kinds):
+        if kind == DENSE:
+            na = torch.linalg.norm(a, dim=-1) + 1e-9
+            nb = torch.linalg.norm(b, dim=-1) + 1e-9
+            feats.append((a * b).sum(-1) / (na * nb))                 # cosine
+            feats.append(-torch.linalg.norm(a - b, dim=-1) / (na + nb))
+        elif kind == SET:
+            va, vb = a != PAD_ITEM, b != PAD_ITEM
+            inter = ((a[:, :, None] == b[:, None, :]) & va[:, :, None]
+                     & vb[:, None, :]).sum((1, 2)).to(torch.float32)
+            size_a = va.sum(-1).to(torch.float32)
+            size_b = vb.sum(-1).to(torch.float32)
+            union = (size_a + size_b - inter).clamp(min=1.0)
+            feats.append(inter / union)                                # Jaccard
+            feats.append(torch.log1p(inter))                           # overlap
+        elif kind == SCALAR:
+            feats.append(-(a - b).abs())
+        else:
+            raise ValueError(f"unknown feature group kind {kind}")
+    return torch.stack(feats, -1)
 
 
 def scorer_mlp_ref(feats, w0, b0, w1, b1, w2, b2) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Runs of one tree repeat on the card: the index's offline training
 (k-means and codebook training, whose per-center sums are
-``index_add_``s) gives the same bits when run twice on the same inputs.
+``index_add_``s) and the scorer's training give the same bits when run
+twice on the same inputs.
 The graph phase of ``chip_smoke.py`` compares edge counts across runs,
 which only works if this holds. Run on the H100 with
 
@@ -14,6 +15,8 @@ import torch
 
 from repro_torch.ann import partition, quantize
 from repro_torch.ann.scann import ScannConfig
+from repro_torch.core.scorer import train_scorer
+from repro_torch.data.synthetic import OGB_ARXIV_LIKE, labeled_pairs
 
 pytestmark = pytest.mark.cuda
 
@@ -52,3 +55,21 @@ def test_codebook_training_repeats_bitwise(card):
                                      cfg.pq_iters, cfg.eta, 0)
             for _ in range(2)]
     assert torch.equal(runs[0], runs[1])
+
+
+def test_train_scorer_repeats_bitwise(card):
+    """The main path's scorer training (300 AdamW steps of batch 1,024 on
+    20,000 labeled arxiv pairs, as chip_smoke.py trains it): weights and
+    losses repeat bit for bit."""
+    rng = np.random.default_rng(0)
+    n = 2000
+    spec = OGB_ARXIV_LIKE.spec
+    feats = {"dense:text": rng.normal(size=(n, 128)).astype(np.float32),
+             "scalar:year": rng.integers(1990, 2021, n).astype(np.float32)}
+    cluster = rng.integers(0, 40, n)
+    pf, lbl = labeled_pairs(feats, cluster, 20_000, spec, seed=0)
+    runs = [train_scorer(0, spec, pf, lbl, steps=300, device=card)
+            for _ in range(2)]
+    assert runs[0][1] == runs[1][1]
+    for name, w in runs[0][0].items():
+        assert torch.equal(w, runs[1][0][name]), name

@@ -11,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.scorer import pair_layout
 from repro_torch.core.types import PAD_INDEX
+from repro_torch.data.synthetic import OGB_ARXIV_LIKE, OGB_PRODUCTS_LIKE
 from repro_torch.kernels import (cases, fused_query, ops, pq_score,
                                   scorer_mlp, sparse_dot, topk_select)
 
@@ -108,10 +110,8 @@ def test_sparse_dot_batched_matches_plain(card, unit):
     want = sparse_dot.sparse_dot_plain(*args)
     torch.cuda.synchronize()
     assert sparse_dot.sparse_dot_batched.launches == before + 1
-    if unit:
-        assert torch.equal(got, want)
-    else:
-        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    # bitwise: the plain version sums in the kernel's order
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.parametrize("n,unit", [(262_144, True), (4099, False)])
@@ -247,3 +247,83 @@ def test_pq_score_matches_plain_bitwise(card, form, b, n, m, c):
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     assert torch.equal(got, want)
+
+
+def _rescore_check(case, k, dev):
+    """sparse_rescore_topk against its plain version: one launch, slots
+    and distances (sign bits included) bitwise."""
+    args = [torch.as_tensor(case[name]).to(dev)
+            for name in cases.RESCORE_ORDER]
+    before = sparse_dot.sparse_rescore_topk.launches
+    got = ops.sparse_rescore_topk(*args, k)
+    want = sparse_dot.sparse_rescore_topk_plain(*args, k)
+    torch.cuda.synchronize()
+    assert sparse_dot.sparse_rescore_topk.launches == before + 1
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    return got
+
+
+@pytest.mark.parametrize("unit", [True, False])
+@pytest.mark.parametrize("b,k", [(16, 11), (16, 17), (256, 11), (256, 17)])
+def test_sparse_rescore_topk_matches_plain_bitwise(card, b, k, unit):
+    """The index's rescore step at the main path's B=16 and the graph
+    seeding's B=256: N = 32,768 candidates, r = 128, a slab of 262,144
+    rows of K = 9, k = 11 (main) and 17 (graph probe). Unit values from a
+    vocabulary of 40 make ties across shortlist positions; IDF-like values
+    test the summation order; -1 slots, -inf entries and an all-invalid
+    row 0 in both."""
+    rng = np.random.default_rng(b + k)
+    case = cases.rescore_inputs(rng, b, 32768, 128, 262_144, 9, 40, unit)
+    slots, dists = _rescore_check(case, k, card)
+    assert (slots[0] == -1).all() and torch.isposinf(dists[0]).all()
+    if unit:
+        assert (dists[1:, 1:] == dists[1:, :-1]).any()   # ties in the cut
+
+
+@pytest.mark.parametrize("r", [1, 300, 1023, 2048, 8192])
+def test_sparse_rescore_topk_shortlist_lengths(card, r):
+    """A shortlist of one, one over two tiles of 128 entries with a ragged
+    end and a non-power-of-two sort, one above the default shared memory
+    (2,048), and the kernel's largest (8,192, the longest shortlist the
+    top-k kernels give); r = 8,193 raises, naming the limit."""
+    rng = np.random.default_rng(r)
+    n = max(4096, r)
+    case = cases.rescore_inputs(rng, 4, n, r, 5000, 9, 40, True)
+    _rescore_check(case, min(r, 17), card)
+    if r == sparse_dot.MAX_REORDER:
+        case = cases.rescore_inputs(rng, 2, r + 1, r + 1, 5000, 9, 40, True)
+        args = [torch.as_tensor(case[name]).to(card)
+                for name in cases.RESCORE_ORDER]
+        with pytest.raises(ValueError, match=f"at most {r}"):
+            ops.sparse_rescore_topk(*args, 10)
+
+
+@pytest.mark.parametrize("p,group", [(160, 1), (160, 10), (4096, 1),
+                                     (4000, 10), (4096, 16)])
+@pytest.mark.parametrize("which", ["arxiv", "products"])
+def test_pair_score_matches_plain(card, which, group, p):
+    """Pair features and the MLP in one launch against pair_features +
+    the plain MLP on the query rows repeated ``group`` times: the arxiv
+    spec (dense 128, a scalar) and the products spec (dense 100, a set of
+    16); P = 160 (16 queries x 10 neighbors, or aligned), about 4,000
+    aligned or in groups of 10, and 4,096 in groups of 16 (a graph
+    seeding chunk of 256 x probe 16); rtol 1e-5, atol 1e-6 (norms and
+    sums reduced in another order)."""
+    spec = {"arxiv": OGB_ARXIV_LIKE, "products": OGB_PRODUCTS_LIKE}[
+        which].spec
+    keys, layout = pair_layout(spec)
+    rng = np.random.default_rng(p + group)
+    fq = cases.feature_rows(rng, spec, p // group)
+    fc = cases.feature_rows(rng, spec, p)
+    weights = [torch.as_tensor(a).to(card) for a in
+               cases.scorer_inputs(rng, 1, layout.n_features, 10)[1:]]
+    q = [torch.as_tensor(fq[key]).to(card) for key in keys]
+    c = [torch.as_tensor(fc[key]).to(card) for key in keys]
+    before = scorer_mlp.pair_score.launches
+    got = scorer_mlp.pair_score(q, c, layout, group, *weights)
+    want = scorer_mlp.pair_score_plain(q, c, layout, group, *weights)
+    torch.cuda.synchronize()
+    assert scorer_mlp.pair_score.launches == before + 1
+    assert got.shape == (p,)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)

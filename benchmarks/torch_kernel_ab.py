@@ -19,11 +19,21 @@ fused shortlist (f32 at B=16 and B=256, int8 at B=16; N = 8 slabs of
 4,096, k = 128). Each turn also checks every kernel result against the
 tree's plain version.
 
+The scorers: ``sparse_dot`` (shared db) at B=64, N=131,072, K=9, and
+``pq_score_batched`` (B=16, N=32,768) and ``pq_score`` (B=16,
+N=131,072, shared codes) at M=8, C=256, each with events, device and host
+ms and device kernels and copies per call, held bitwise against the
+tree's plain version; ``ann.brute.BruteIndex.search`` for 64 queries,
+k = 10, on a 131,072-slot index of 100,000 rows (5,000 deleted), whose
+answer must be the first turn's (the last turn's, for the first) with
+the distances bit for bit.
+
 Steps, the functions both trees have, on state made here from seeds:
 ``ann.scann._query_step`` at B=16 and B=256 on one index state of the
 arxiv layout (661 partitions of slabs of 4,096, probe 8, reorder 128,
 k = 11, a slab of 262,144 rows of K = 9), each checked against the same
-step on the CPU (the plain versions); ``core.scorer.score_pairs`` on
+step on the CPU (the plain versions); ``_query_step`` with ``fused=False`` at B=16 (the pq-score kernel, the
+top-k and the dedup mask), checked likewise; ``core.scorer.score_pairs`` on
 arxiv feature rows at P=160 and P=4,096, aligned (both trees), and as the
 neighborhood RPC scores (``rpc``: the parent repeats each query row on
 the host, a tree whose ``score_pairs`` takes ``group`` passes the query
@@ -59,6 +69,9 @@ FUSED = {"f32 B=16": (16, False), "f32 B=256": (256, False),
          "int8 B=16": (16, True)}
 N_FUSED, K_FUSED = 8 * 4096, 128
 QUERY_STEP = (16, 256)          # queries per _query_step call
+SPARSE = dict(b=64, n=131_072, k_dims=9, vocab=2000)
+PQ = {"pq_score_batched": (16, 32768), "pq_score": (16, 131_072)}
+BRUTE = dict(rows=100_000, deleted=5000, queries=64, k=10)
 INDEX = dict(partitions=661, slab=4096, m=8, centers=256, d_proj=64,
              cap=262_144, k_dims=9, nprobe=8, reorder=128, k=11)
 PAIRS = {"P=160": (16, 10), "P=4096": (256, 16)}   # query rows, group
@@ -114,6 +127,17 @@ def _queries(b: int) -> dict:
                 q_val=np.ones(idx.shape, np.float32),
                 q_sketch=rng.normal(size=(b, INDEX["d_proj"])).astype(
                     np.float32))
+
+
+def _sparse_rows(rows: int, seed: int) -> tuple:
+    """Sorted indices below ``SPARSE['vocab']`` with the last two of each
+    row padding, unit values (scores are small integers: many ties)."""
+    rng = np.random.default_rng(seed)
+    idx = np.sort(rng.integers(0, SPARSE["vocab"], (rows, SPARSE["k_dims"])),
+                  axis=1)
+    idx[:, -2:] = 0xFFFFFFFF
+    val = np.where(idx == 0xFFFFFFFF, 0.0, 1.0).astype(np.float32)
+    return idx.astype(np.int64), val
 
 
 def _pair_rows(rows: int, seed: int) -> dict:
@@ -233,8 +257,54 @@ def time_tree(tree: str) -> dict:
             kernel_ms=ms(kernel), kernel_device_ms=device_ms(kernel),
             kernel_host_ms=host_ms(kernel), plain_ms=ms(plain),
             equal=same(kernel(), plain()))
+    out.update(time_scorers(torch, dev, step_row))
     out.update(time_steps(torch, dev, step_row))
     out["neighborhood RPC"] = time_rpc(torch, dev, device_profile)
+    return out
+
+
+def time_scorers(torch, dev, step_row) -> dict:
+    """The shared sparse dot, both pq-score forms and the brute search
+    (module doc)."""
+    from repro_torch.ann.brute import BruteIndex
+    from repro_torch.core.types import SparseBatch
+    from repro_torch.kernels import pq_score, sparse_dot
+
+    def bits(a, b) -> bool:
+        return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+    out = {}
+    q = [torch.as_tensor(a).to(dev) for a in _sparse_rows(SPARSE["b"], 1)]
+    db = [torch.as_tensor(a).to(dev) for a in _sparse_rows(SPARSE["n"], 2)]
+    row = step_row(lambda: sparse_dot.sparse_dot(*q, *db))
+    row["equal"] = bits(sparse_dot.sparse_dot(*q, *db),
+                        sparse_dot.sparse_dot_plain(*q, *db))
+    out[f"sparse_dot B={SPARSE['b']} N={SPARSE['n']}"] = row
+    for name, (b, n) in PQ.items():
+        rng = np.random.default_rng(n + b)
+        lut = torch.as_tensor(rng.normal(size=(b, 8, 256)).astype(
+            np.float32)).to(dev)
+        shape = (n, 8) if name == "pq_score" else (b, n, 8)
+        codes = torch.as_tensor(rng.integers(0, 256, shape, dtype=np.uint8)
+                                ).to(dev)
+        fn = getattr(pq_score, name)
+        row = step_row(lambda fn=fn: fn(lut, codes))
+        row["equal"] = bits(fn(lut, codes), pq_score.pq_score_plain(lut,
+                                                                   codes))
+        out[f"{name} B={b} N={n}"] = row
+    idx, val = _sparse_rows(BRUTE["rows"], 3)
+    index = BruteIndex(SPARSE["k_dims"], device=dev)
+    index.upsert(np.arange(BRUTE["rows"]), SparseBatch(
+        torch.as_tensor(idx).to(dev), torch.as_tensor(val).to(dev)))
+    index.delete(np.arange(0, 2 * BRUTE["deleted"], 2))
+    qi, qv = (torch.as_tensor(a).to(dev)
+              for a in _sparse_rows(BRUTE["queries"], 4))
+    search = lambda: index.search(SparseBatch(qi, qv), BRUTE["k"])  # noqa
+    row = step_row(search)
+    ids, dists = search()
+    row.update(capacity=index.capacity, answer=dict(
+        ids=ids.tolist(), dist_bits=dists.view(np.int32).tolist()))
+    out[f"BruteIndex.search {BRUTE['queries']} queries k={BRUTE['k']}"] = row
     return out
 
 
@@ -267,6 +337,19 @@ def time_steps(torch, dev, step_row) -> dict:
             and torch.equal(got[1].cpu().view(torch.int32),
                             cpu[1].view(torch.int32)))
         out[f"_query_step B={b}"] = row
+    b = QUERY_STEP[0]
+    q = {k: torch.as_tensor(v).to(dev) for k, v in _queries(b).items()}
+    unfused = dict(kw, fused=False)
+    row = step_row(lambda: scann._query_step(*q.values(), *on_dev.values(),
+                                             **unfused))
+    cpu = scann._query_step(
+        *[torch.as_tensor(v) for v in _queries(b).values()],
+        *[torch.as_tensor(v) for v in state.values()], **unfused)
+    got = scann._query_step(*q.values(), *on_dev.values(), **unfused)
+    row["equal"] = bool(torch.equal(got[0].cpu(), cpu[0])
+                        and torch.equal(got[1].cpu().view(torch.int32),
+                                        cpu[1].view(torch.int32)))
+    out[f"_query_step fused=False B={b}"] = row
     spec = OGB_ARXIV_LIKE.spec
     params = {k: torch.as_tensor(v).to(dev)
               for k, v in _scorer_params(3).items()}
@@ -381,6 +464,11 @@ def main() -> int:
     answers = [row.pop("answer") for row in rpcs]
     for i, row in enumerate(rpcs):
         row["equal"] = _same_answer(answers[i], answers[-1 if i == 0 else 0])
+    brute = f"BruteIndex.search {BRUTE['queries']} queries k={BRUTE['k']}"
+    answers = [t["times"][brute].pop("answer") for t in turns]
+    for i, t in enumerate(turns):
+        t["times"][brute]["equal"] = (answers[i]
+                                      == answers[-1 if i == 0 else 0])
     bad = [(t["tree"], name) for t in turns for name, row in t["times"].items()
            if not row["equal"]]
     result = dict(card=card, turns=turns, kernels_equal_plain=not bad)

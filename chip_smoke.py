@@ -12,7 +12,9 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    one neighborhood RPC timed apart as set-up (they load kernel modules),
    then 20 mutation batches with a 16-id neighborhood RPC after every other
    one, and the recall of the index against the exact brute-force index on
-   64 live ids drawn with a fixed seed;
+   64 live ids drawn with a fixed seed (the brute search: the masked
+   sparse_dot kernel, then topk_select; its time is on the ``[main]``
+   line);
 3. the index configurations, on the main path's index after its stream:
    copies of the index with ``fused=False``, ``pq_int8=True`` and both
    answer the 64 recall queries; ``fused=False`` must equal the fused
@@ -27,10 +29,10 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    rebuild at matched k on 1,024 live ids drawn with a fixed seed;
 5. hold every kernel against its plain PyTorch version on the card at the
    shapes the paths reached, plus edge cases (fused_query, its int8
-   instance, topk_select, pq_score, sparse_dot_batched and
-   sparse_rescore_topk bitwise, the signs of zeros included; sparse_dot
-   at IDF-like weights and scorer_mlp within rtol/atol 1e-6, pair_score
-   within rtol 1e-5 / atol 1e-6), and time kernel, plain
+   instance, topk_select, both pq_score forms, both sparse_dot forms and
+   sparse_rescore_topk bitwise, the signs of zeros included; scorer_mlp
+   within rtol/atol 1e-6, pair_score within rtol 1e-5 / atol 1e-6), and
+   time kernel, plain
    version and, for the top-k, ``torch.topk`` with CUDA events, plus each
    kernel's device time per call from ``torch.profiler`` (fused_query,
    sparse_rescore_topk and pair_score also at the graph's shapes; the
@@ -191,13 +193,13 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
             bound_ms=bound, bound_by=by)
     main_k = fq_args["main"][1]
 
-    # sparse_dot (both forms): per-query rows bitwise at any weights (the
-    # plain version sums in the kernel's order); the shared db bitwise at
-    # unit weights, rtol/atol 1e-6 with IDF-like weights. A sparse entry is a u32 index and an f32 value: the
-    # function needs 8 bytes of it (the port holds indices in int64 and the
-    # kernel reads their low words). No path calls sparse_dot_batched (the
-    # rescore runs sparse_rescore_topk): its launches are counted around
-    # its first call here
+    # sparse_dot (both forms), bitwise at unit and IDF-like weights (the
+    # plain version sums in the kernels' order). A sparse entry is a u32
+    # index and an f32 value: the function needs 8 bytes of it (the port
+    # holds indices in int64 and the kernels read their low words). No
+    # path calls sparse_dot_batched (the rescore runs sparse_rescore_topk):
+    # its launches are counted around its first call here. The shared
+    # form also runs its edge cases (cases.sparse_dot_cases)
     kd = shapes["k_dims"]
     forms = {"sparse_dot_batched": (
                  sparse_dot.sparse_dot_batched, 40,
@@ -213,19 +215,9 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
             launches = fn.launches - before
             want = sparse_dot.sparse_dot_plain(*args)
             torch.cuda.synchronize()
-            if fn is sparse_dot.sparse_dot_batched:
-                # per-query rows: the plain version sums in the kernel's
-                # order, so any weights agree bit for bit
-                if not torch.equal(got.view(torch.int32),
-                                   want.view(torch.int32)):
-                    raise AssertionError(f"{name} differs (unit={unit})")
-            elif unit:
-                if not torch.equal(got, want):
-                    raise AssertionError(f"{name} differs at unit weights")
-            else:
-                torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
-            print(f"[kernels] {name} unit={unit}: max_abs_err "
-                  f"{_max_abs_err(got, want)!r}")
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"{name} differs (unit={unit})")
+            print(f"[kernels] {name} unit={unit}: bitwise equal")
         b, kq = q_shape
         rows = int(np.prod(db_shape[:-1]))         # db rows read once
         bound, by = _bound_ms(b * kq * 8 + rows * kd * 8 + got.numel() * 4,
@@ -236,6 +228,15 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
             **_timed(torch, lambda: fn(*args),
                      lambda: sparse_dot.sparse_dot_plain(*args)),
             bound_ms=bound, bound_by=by, launches=launches)
+    for name, arrays in cases.sparse_dot_cases(rng):
+        args = [None if a is None else torch.as_tensor(a).to(dev)
+                for a in arrays]
+        got = sparse_dot.sparse_dot(*args)
+        want = sparse_dot.sparse_dot_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"sparse_dot differs ({name})")
+        print(f"[kernels] sparse_dot {name}: bitwise equal")
 
     # sparse_rescore_topk: the shortlist's slots, slab rows, exact sparse
     # dot, mask and final top-k of the main path's search (16 queries,
@@ -349,8 +350,11 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
         if not _bitwise(torch, got, want):
             raise AssertionError(f"topk_select differs from its plain "
                                  f"version above k = 64 ({name})")
+        bound, by = _bound_ms(b * n * 4 + b * k * 8, b * n)
         above[name] = dict(
-            shape=f"B={b} N={n} k={k}",
+            shape=f"B={b} N={n} k={k}", bound_ms=bound, bound_by=by,
+            device_ms=_device_ms(lambda: topk_select.topk_select(
+                scores, k, signed_zeros=True), torch),
             kernel_ms=_time_ms(lambda: topk_select.topk_select(
                 scores, k, signed_zeros=True), torch),
             sort_ms=_time_ms(lambda: topk_select.topk_select_plain(
@@ -360,7 +364,8 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
           "(stable sort): " + json.dumps(above))
 
     # pq_score_batched (the fused=False shortlist's shape) and pq_score
-    # (shared codes), bitwise
+    # (shared codes), bitwise, then every code-load path
+    # (cases.pq_score_cases)
     for name, fn, b, n in (("pq_score_batched", pq_score.pq_score_batched,
                             shapes["fq_b"], shapes["fq_n"]),
                            ("pq_score", pq_score.pq_score, 16, 131072)):
@@ -379,7 +384,7 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
             launches = None
         want = pq_score.pq_score_plain(lut, codes)
         torch.cuda.synchronize()
-        if not torch.equal(got, want):
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
             raise AssertionError(f"{name} differs from its plain version")
         print(f"[kernels] {name} B={b} N={n}: bitwise equal")
         m, c = lut.shape[1], lut.shape[2]
@@ -391,6 +396,21 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
             **_timed(torch, lambda: fn(lut, codes),
                      lambda: pq_score.pq_score_plain(lut, codes)),
             bound_ms=bound, bound_by=by, launches=launches)
+    for name, lut, codes, shared in cases.pq_score_cases(rng):
+        lut, codes = torch.as_tensor(lut).to(dev), torch.as_tensor(codes)
+        if name == "offset view":            # one byte off its buffer
+            buf = torch.empty(codes.numel() + 1, dtype=torch.uint8,
+                              device=dev)
+            buf[1:].copy_(codes.flatten())
+            codes = buf[1:].view(codes.shape)
+        codes = codes.to(dev)
+        fn = pq_score.pq_score if shared else pq_score.pq_score_batched
+        got = fn(lut, codes)
+        want = pq_score.pq_score_plain(lut, codes)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"pq_score differs ({name})")
+        print(f"[kernels] pq_score {name}: bitwise equal")
 
     # scorer_mlp: 16 queries x 10 neighbors of arxiv pair features (no
     # path calls it: pair_score scores the pairs; launches counted here)
@@ -573,6 +593,19 @@ def run_main_path(torch, n_points: int, dev) -> tuple[dict, dict]:
     recall = _recall_at_10((bids, bd), gus.index.search(emb, 10))
     torch.cuda.synchronize()
     counts = ops.launch_counts()
+    # the exact search (masked sparse dot, split top-k, the answer on the
+    # host): median of 5 more calls, outside the launch counts
+    brute_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        if not np.array_equal(brute.search(emb, 10)[0], bids):
+            raise AssertionError("the brute search did not repeat")
+        brute_ms.append((time.perf_counter() - t0) * 1e3)
+    # device time of the search and of its scoring kernel on these rows
+    brute_dev = (_device_ms(lambda: brute.search(emb, 10), torch),
+                 _device_ms(lambda: ops.sparse_dot(
+                     emb.indices, emb.values, brute.db_idx, brute.db_val,
+                     valid=brute.valid), torch))
 
     mut = gus.mutation_timer.summary()
     qry = gus.query_timer.summary()
@@ -593,12 +626,16 @@ def run_main_path(torch, n_points: int, dev) -> tuple[dict, dict]:
                mutation_p50_ms=mut["p50_ms"], mutation_p99_ms=mut["p99_ms"],
                neighbors_p50_ms=qry["p50_ms"], neighbors_p99_ms=qry["p99_ms"],
                recall_at_10=recall, same_cluster=same_rate,
+               brute_search_ms=float(np.median(brute_ms)),
+               brute_search_device_ms=brute_dev[0],
+               brute_sparse_dot_device_ms=brute_dev[1],
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                launches=counts)
     print("[main] " + json.dumps(out))
     profile_rpcs(torch, gus, stream)
     _require_launched(counts, ("fused_query", "sparse_rescore_topk",
-                               "sparse_dot", "pair_score"), "the main path")
+                               "sparse_dot", "topk_select", "pair_score"),
+                      "the main path")
     if not same_rate > 0.7:
         raise AssertionError(f"same-cluster rate {same_rate} <= 0.7")
     ctx = dict(gus=gus, qids=qids, exact=(bids, bd), data=data,

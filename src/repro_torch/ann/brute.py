@@ -2,10 +2,12 @@
 ``repro/ann/brute.py``).
 
 The correctness oracle for the quantized index (the recall check of
-``chip_smoke.py``) and the exact backend of ``DynamicGUS``. Scores go
-through the shared-db ``sparse_dot`` kernel. Layout: power-of-two
-capacity device slabs plus a host id->slot map; inserts scatter rows into
-free slots, deletes tombstone the validity mask.
+``chip_smoke.py``) and the exact backend of ``DynamicGUS``. A search is
+two kernels, as the reference's ``sparse_dot`` -> mask -> ``lax.top_k``:
+the shared-db ``sparse_dot`` with the tombstones masked to -inf in the
+same launch, then ``topk_select`` in ``lax.top_k``'s order. Layout:
+power-of-two capacity device slabs plus a host id->slot map; inserts
+scatter rows into free slots, deletes tombstone the validity mask.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import torch
 
 from repro_torch.core.types import PAD_INDEX, SparseBatch
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import topk_ref
+from repro_torch.kernels.topk_select import chunk_plan, topk_select
 from repro_torch.utils.device import resolve
 
 
@@ -119,12 +121,16 @@ class BruteIndex:
 
     def search(self, emb: SparseBatch, k: int):
         """Top-k by ascending distance. Returns (ids [B,k], dists [B,k]);
-        missing neighbors padded with id=-1, dist=+inf."""
+        missing neighbors padded with id=-1, dist=+inf. On the card a k
+        the split top-k does not take raises ``ValueError``
+        (``topk_select.chunk_plan``: k <= 4,096 once the capacity passes
+        8,192)."""
         k_eff = min(k, self.capacity)
+        if self.device.type == "cuda":
+            chunk_plan(self.capacity, k_eff)       # raises, naming the limit
         scores = ops.sparse_dot(emb.indices, emb.values, self.db_idx,
-                                self.db_val)
-        scores = torch.where(self.valid[None, :], scores, float("-inf"))
-        top, slots = topk_ref(scores, k_eff)
+                                self.db_val, valid=self.valid)
+        top, slots = topk_select(scores, k_eff, signed_zeros=True)
         scores, slots = top.cpu().numpy(), slots.cpu().numpy()
         ids = np.where(np.isfinite(scores), self.ids[slots], -1)
         dists = np.where(np.isfinite(scores), -scores, np.inf)
@@ -133,3 +139,14 @@ class BruteIndex:
             ids = np.pad(ids, pad, constant_values=-1)
             dists = np.pad(dists, pad, constant_values=np.inf)
         return ids, dists.astype(np.float32)
+
+    def search_threshold(self, emb: SparseBatch, tau: float = 0.0):
+        """All points with Dist < tau (Lemma 4.1 retrieval mode). Returns
+        a list (one per query row) of (ids, dists) numpy arrays."""
+        scores = ops.sparse_dot(emb.indices, emb.values, self.db_idx,
+                                self.db_val, valid=self.valid).cpu().numpy()
+        out = []
+        for row in scores:
+            hit = ((-row) < tau) & (self.ids != -1)
+            out.append((self.ids[hit].copy(), (-row[hit]).astype(np.float32)))
+        return out

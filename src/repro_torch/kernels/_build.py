@@ -124,10 +124,6 @@ def device_kind(t: torch.Tensor, what: str) -> str:
     return t.device.type
 
 
-def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
-    return ctypes.c_void_p(0 if t is None else t.data_ptr())
-
-
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
     """PyTorch's current stream on the tensor's device, for the launch."""
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

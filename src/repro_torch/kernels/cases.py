@@ -62,6 +62,55 @@ def sparse_rows(rng, shape, vocab: int, unit: bool):
     return idx, val
 
 
+def sparse_dot_cases(rng) -> list:
+    """(name, [q_idx, q_val, db_idx, db_val, valid or None]) for the
+    shared-db sparse dot: B = 1, 63, 64 and 300 (one, two and ten chunks
+    of the kernel's 32 query rows) on a ragged N, Kq above and below Kd
+    (Kq = 40 takes the kernel past the default shared memory), all-padding
+    db and query rows, repeated indices in queries and db rows (a
+    vocabulary of 12), and a row mask; IDF-like values."""
+    def case(b, n, kq, kd, vocab=500):
+        return [*sparse_rows(rng, (b, kq), vocab, False),
+                *sparse_rows(rng, (n, kd), vocab, False), None]
+
+    out = [(f"B={b}", case(b, 4099, 9, 9)) for b in (1, 63, 64, 300)]
+    out += [("Kq=40 Kd=5", case(64, 4099, 40, 5)),
+            ("Kq=3 Kd=16", case(64, 4099, 3, 16))]
+    pads = case(40, 1000, 9, 9)
+    pads[0][5] = PAD_INDEX                       # an all-padding query row
+    pads[2][::7] = PAD_INDEX                     # all-padding db rows
+    repeats = case(64, 3000, 9, 9, vocab=12)
+    masked = case(64, 4099, 9, 9, vocab=50)
+    masked[4] = rng.random(4099) < 0.7
+    return out + [("padding rows", pads), ("repeated indices", repeats),
+                  ("row mask", masked)]
+
+
+def pq_score_cases(rng) -> list:
+    """(name, lut, codes, shared) through every code-load path of the
+    pq-score kernel: M = 4, 8, 16 (word loads) and 5 (bytes), C = 16 and
+    256, ragged N, B = 1 and 300, both forms, and codes from a view one
+    byte off their buffer (byte loads at M = 8)."""
+    out = []
+    for m, c, b, n, shared in ((4, 16, 1, 1001, False), (8, 256, 300, 777,
+                                                        False),
+                               (16, 256, 3, 4097, False),
+                               (16, 16, 300, 1001, True),
+                               (4, 256, 1, 70_001, True),
+                               (8, 16, 17, 5000, True),
+                               (5, 20, 3, 1001, False)):
+        lut = rng.normal(size=(b, m, c)).astype(np.float32)
+        codes = rng.integers(0, c, (n, m) if shared else (b, n, m),
+                             dtype=np.uint8)
+        out.append((f"M={m} C={c} B={b} N={n} "
+                    f"{'shared' if shared else 'batched'}", lut, codes,
+                    shared))
+    lut = rng.normal(size=(16, 8, 256)).astype(np.float32)
+    out.append(("offset view", lut, rng.integers(0, 256, (16, 999, 8),
+                                                 dtype=np.uint8), False))
+    return out
+
+
 RESCORE_ORDER = ("q_idx", "q_val", "flat_slots", "short_pos",
                  "short_scores", "sp_idx", "sp_val")
 

@@ -7,8 +7,8 @@
 //     query, db [N, Kd]: the exact brute-force index).
 // Both have the body _sparse_dot_kernel: out[b, r] = sum over index pairs
 // (i, j) with q_idx[b, i] == db_idx[r, j] != PAD_INDEX of q_val * db_val.
-// sparse_dot_kernel serves both (the shared form is a db batch stride of
-// 0). rescore_topk_kernel is sparse_dot_batched redesigned with what
+// sparse_dot_kernel is the per-query form; shared_dot_kernel the shared
+// one. rescore_topk_kernel is sparse_dot_batched redesigned with what
 // surrounds it on the index's path (src/repro/ann/scann.py:126-144): the
 // shortlist's slot gather, the slab-row gather, the rescore, the mask and
 // the final top-k in one launch.
@@ -18,27 +18,53 @@
 // word is always 0, so equality of low words is equality of the indices,
 // and PAD_INDEX becomes -1.
 //
-// Sum order (both kernels, row_dot): db entry j outer, query entry i
-// inner, products and sums rounded separately (no fused multiply-add), an
-// add only on a match. The sum starts at +0.0 and in round-to-nearest
-// never becomes -0.0, so skipping a non-match is adding +0.0: the plain
-// version ref.sparse_dot_seq_ref adds where(match, q * d, 0) in the same
-// order and agrees bit for bit.
+// Sum order (every kernel): db entry j outer, query entry i inner,
+// products and sums rounded separately (no fused multiply-add), an add
+// only on a match. The sum starts at +0.0 and in round-to-nearest never
+// becomes -0.0, so skipping a non-match is adding +0.0: the plain version
+// ref.sparse_dot_seq_ref adds where(match, q * d, 0) in the same order and
+// agrees bit for bit.
 //
-// What bounds them on the H100: bytes. Each db row (Kd 8-byte indices and
-// Kd float values) is read once per query and takes Kq x Kd integer
-// compares; at Kq = Kd = 9 that is 81 compares per 108 bytes, far below
-// the compute rate. In the shared form the db is read once per query row
-// of the grid; a 262,144-row db of K = 9 is 28 MB, inside the 50 MB L2, so
-// the repeats mostly hit L2. The rescore's bytes are a few hundred KB a
-// call (R rows of 108 bytes per query), below a launch's worth of work, so
-// its time is the latency of its dependent reads (slot, then row) and the
-// sort, and fusing the gathers, mask and top-k that surrounded the old
-// kernel on the path is what removes time.
+// What bounds the per-query forms: each db row (Kd 8-byte indices and Kd
+// float values) is read once and takes Kq x Kd integer compares, 81 per
+// 108 bytes at Kq = Kd = 9, far below the compute rate. The rescore's
+// bytes are a few hundred KB a call (R rows of 108 bytes per query),
+// below a launch's worth of work, so its time is the latency of its
+// dependent reads (slot, then row) and the sort, and fusing the gathers,
+// mask and top-k that surrounded the old kernel on the path is what
+// removes time.
 //
-// Design of sparse_dot_kernel: grid (ceil(R / 256), B), one thread per
-// (query, db row); the block's query row (indices and values) is staged in
+// Design of sparse_dot_kernel (per-query rows): grid (ceil(R / 256), B),
+// one thread per (query, db row); the block's query row is staged in
 // shared memory and each thread walks its db row once.
+//
+// Design of shared_dot_kernel (one db for every query; the brute index).
+// A thread per (query, db row) would re-read the whole db once per query
+// row (from L2: 64 queries x 14 MB at N = 131,072) with loads 72 bytes
+// apart across a warp, and compare every (i, j) pair: 64 x 81 compares
+// per db row. Instead:
+// - one block of 128 threads per tile of 128 db rows; the tile is copied
+//   into shared memory with consecutive threads on consecutive entries
+//   (coalesced), at an odd row stride (conflict-free reads); the db is
+//   read from device memory once, whatever B is;
+// - the queries come in chunks of 32 rows. A chunk's entries go into an
+//   open-addressing hash table in shared memory keyed by index, one slot
+//   per distinct (query row, index), holding the lowest position i; a
+//   query row's repeats of an index are chained in ascending i. Padding
+//   is never inserted;
+// - each thread walks its row's Kd entries in order and looks each index
+//   up (about 1.3 probes at the table's load of at most 1/2): a compare
+//   is paid only where an index exists in some query of the chunk, and
+//   each match adds q * d to that query's sum, kept in shared memory
+//   (one column per thread, conflict-free). For a fixed query the adds
+//   come in j-outer, i-inner order, the order above;
+// - the chunk's sums are written out[b, r] coalesced per query row, -inf
+//   where the optional row mask `valid` is false (the brute index's
+//   tombstones, so the search needs no masking pass over [B, N]).
+// What bounds it: bytes, B x N x 4 written and N x Kd x 12 read (the
+// int64 indices' high words are fetched with the low ones); the hash
+// table's build is a few hundred shared-memory operations per block and
+// chunk, the lookups Kd probes per row and chunk.
 //
 // Design of rescore_topk_kernel: one block of 128 threads per query row.
 // The query's indices and values and the R shortlist slots (slot =
@@ -65,6 +91,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRescoreThreads = 128;    // also the shortlist entries a tile
 constexpr int kMaxReorder = 8192;      // sparse_dot.py MAX_REORDER
+constexpr int kTileRows = 128;         // shared form: db rows (threads) a block
+constexpr int kQueryChunk = 32;        // shared form: query rows a table holds
 
 // isfinite without the host math headers' overloads: exponent not all ones.
 __device__ __forceinline__ bool finite(float x) {
@@ -93,7 +121,7 @@ __global__ void __launch_bounds__(kThreads)
 sparse_dot_kernel(const int* __restrict__ q_idx, const float* __restrict__ q_val,
                   const int* __restrict__ db_idx,
                   const float* __restrict__ db_val, float* __restrict__ out,
-                  int R, int Kq, int Kd, long long db_batch_rows) {
+                  int R, int Kq, int Kd) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* qi_s = reinterpret_cast<int*>(smem);
   float* qv_s = reinterpret_cast<float*>(qi_s + Kq);
@@ -105,9 +133,105 @@ sparse_dot_kernel(const int* __restrict__ q_idx, const float* __restrict__ q_val
   __syncthreads();
   const int r = blockIdx.x * kThreads + threadIdx.x;
   if (r >= R) return;
-  const size_t row = ((size_t)b * db_batch_rows + r) * Kd;
+  const size_t row = ((size_t)b * R + r) * Kd;
   out[(size_t)b * R + r] = row_dot(qi_s, qv_s, Kq, db_idx + 2 * row,
                                    db_val + row, 2, Kd);
+}
+
+// Home slot of an index in a table of 2^log_slots slots (Fibonacci hash).
+__device__ __forceinline__ int home_slot(int key, int log_slots) {
+  return static_cast<int>((static_cast<uint32_t>(key) * 2654435761u) >>
+                          (32 - log_slots));
+}
+
+size_t shared_smem_bytes(int Kq, int Kd, int log_slots) {
+  const size_t qk = (size_t)kQueryChunk * Kq;
+  return sizeof(int2) * ((size_t)1 << log_slots)          // hash table
+         + sizeof(float) * kQueryChunk * kTileRows          // sums
+         + (sizeof(int) + sizeof(float)) * kTileRows * (Kd | 1)  // tile
+         + (2 * sizeof(int) + sizeof(float)) * qk;          // qi, chain, qv
+}
+
+__global__ void __launch_bounds__(kTileRows)
+shared_dot_kernel(const int* __restrict__ q_idx,
+                  const float* __restrict__ q_val,
+                  const int* __restrict__ db_idx,
+                  const float* __restrict__ db_val,
+                  const bool* __restrict__ valid, float* __restrict__ out,
+                  int B, int N, int Kq, int Kd, int log_slots) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n_slots = 1 << log_slots;
+  const int S = Kd | 1;                    // odd stride: no bank conflicts
+  int2* table = reinterpret_cast<int2*>(smem);   // (index, position) or -1
+  float* sums = reinterpret_cast<float*>(table + n_slots);
+  int* ti = reinterpret_cast<int*>(sums + kQueryChunk * kTileRows);
+  float* tv = reinterpret_cast<float*>(ti + kTileRows * S);
+  int* qi = reinterpret_cast<int*>(tv + kTileRows * S);
+  int* chain = qi + kQueryChunk * Kq;      // next position, same row+index
+  float* qv = reinterpret_cast<float*>(chain + kQueryChunk * Kq);
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * kTileRows;
+  const int rows = min(kTileRows, N - r0);
+  const size_t base = (size_t)r0 * Kd;
+  for (int f = tid; f < rows * Kd; f += kTileRows) {
+    const int e = f / Kd;
+    ti[e * S + f - e * Kd] = db_idx[2 * (base + f)];   // low word
+    tv[e * S + f - e * Kd] = db_val[base + f];
+  }
+  const int r = r0 + tid;
+  const bool live = tid < rows;
+  const bool dead = live && valid != nullptr && !valid[r];
+  float* mine = sums + tid;                // this thread's column
+  for (int b0 = 0; b0 < B; b0 += kQueryChunk) {
+    const int qb = min(kQueryChunk, B - b0);
+    const int qk = qb * Kq;
+    __syncthreads();                       // the last chunk's lookups ended
+    for (int s = tid; s < n_slots; s += kTileRows) table[s] = make_int2(-1, 0);
+    for (int e = tid; e < qk; e += kTileRows) {
+      qi[e] = q_idx[2 * ((size_t)b0 * Kq + e)];
+      qv[e] = q_val[(size_t)b0 * Kq + e];
+    }
+    __syncthreads();
+    for (int e = tid; e < qk; e += kTileRows) {
+      const int key = qi[e];
+      const int row = e - e % Kq;
+      int next = -1;
+      bool first = true;
+      for (int f = row; f < row + Kq; ++f) {
+        if (qi[f] != key) continue;
+        if (f < e) first = false;
+        if (f > e && next < 0) next = f;
+      }
+      chain[e] = next;
+      if (key == -1 || !first) continue;
+      int s = home_slot(key, log_slots);
+      while (atomicCAS(&table[s].x, -1, key) != -1) s = (s + 1) & (n_slots - 1);
+      table[s].y = e;
+    }
+    __syncthreads();
+    if (!live) continue;
+    for (int q = 0; q < qb; ++q) mine[q * kTileRows] = 0.0f;
+    for (int j = 0; j < Kd && !dead; ++j) {
+      const int dj = ti[tid * S + j];
+      if (dj == -1) continue;
+      const float dval = tv[tid * S + j];
+      for (int s = home_slot(dj, log_slots);; s = (s + 1) & (n_slots - 1)) {
+        const int2 slot = table[s];
+        if (slot.x == -1) break;
+        if (slot.x != dj) continue;
+        int e = slot.y;
+        float* acc = mine + (e / Kq) * kTileRows;
+        float v = *acc;
+        do {                                // ascending i within the row
+          v = __fadd_rn(v, __fmul_rn(qv[e], dval));
+          e = chain[e];
+        } while (e >= 0);
+        *acc = v;
+      }
+    }
+    for (int q = 0; q < qb; ++q)
+      out[(size_t)(b0 + q) * N + r] = dead ? -INFINITY : mine[q * kTileRows];
+  }
 }
 
 size_t rescore_smem_bytes(int R, int Kq, int Kd) {
@@ -189,13 +313,12 @@ extern "C" const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q_idx [B, Kq] and db_idx [.., Kd] are int64 tensors passed as raw
-// pointers; db_batch_rows is R for per-query rows and 0 for a shared db.
+// Per-query rows: q_idx i64 [B, Kq], q_val f32 [B, Kq], db_idx i64
+// [B, R, Kd], db_val f32 [B, R, Kd] -> out f32 [B, R].
 extern "C" int sparse_dot_launch(const void* q_idx, const void* q_val,
                                  const void* db_idx, const void* db_val,
                                  void* out, int B, int R, int Kq, int Kd,
-                                 long long db_batch_rows, int device,
-                                 void* stream) {
+                                 int device, void* stream) {
   if (B == 0 || R == 0) return 0;
   return sel::on_device(device, [&]() -> cudaError_t {
     const dim3 grid((R + kThreads - 1) / kThreads, B);
@@ -204,7 +327,34 @@ extern "C" int sparse_dot_launch(const void* q_idx, const void* q_val,
                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(q_idx), static_cast<const float*>(q_val),
         static_cast<const int*>(db_idx), static_cast<const float*>(db_val),
-        static_cast<float*>(out), R, Kq, Kd, db_batch_rows);
+        static_cast<float*>(out), R, Kq, Kd);
+    return cudaGetLastError();
+  });
+}
+
+// Shared db: q_idx i64 [B, Kq], q_val f32 [B, Kq], db_idx i64 [N, Kd],
+// db_val f32 [N, Kd], valid bool [N] or null -> out f32 [B, N] (-inf in
+// the columns of rows that are not valid).
+extern "C" int sparse_dot_shared_launch(const void* q_idx, const void* q_val,
+                                        const void* db_idx,
+                                        const void* db_val, const void* valid,
+                                        void* out, int B, int N, int Kq,
+                                        int Kd, int device, void* stream) {
+  if (B == 0 || N == 0) return 0;
+  return sel::on_device(device, [&]() -> cudaError_t {
+    int log_slots = 1;                     // load factor <= 1/2
+    while ((1 << log_slots) < 2 * kQueryChunk * Kq) ++log_slots;
+    const size_t bytes = shared_smem_bytes(Kq, Kd, log_slots);
+    static int granted[sel::kMaxDevices];
+    cudaError_t err = sel::allow_smem(shared_dot_kernel, bytes, device,
+                                      granted);
+    if (err != cudaSuccess) return err;
+    shared_dot_kernel<<<(N + kTileRows - 1) / kTileRows, kTileRows, bytes,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(q_idx), static_cast<const float*>(q_val),
+        static_cast<const int*>(db_idx), static_cast<const float*>(db_val),
+        static_cast<const bool*>(valid), static_cast<float*>(out), B, N, Kq,
+        Kd, log_slots);
     return cudaGetLastError();
   });
 }

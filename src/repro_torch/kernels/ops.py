@@ -108,9 +108,10 @@ def dedup_mask(vals, idxs, ids, valid) -> torch.Tensor:
     return shortlist_dedup_ref(vals, idxs.long(), ids, valid.to(torch.bool))
 
 
-def sparse_dot(q_idx, q_val, db_idx, db_val) -> torch.Tensor:
-    """Exact sparse-sparse scores: q [B,Kq] vs db [N,Kd] -> f32 [B, N]."""
-    return _sd.sparse_dot(q_idx, q_val, db_idx, db_val)
+def sparse_dot(q_idx, q_val, db_idx, db_val, valid=None) -> torch.Tensor:
+    """Exact sparse-sparse scores: q [B,Kq] vs db [N,Kd] -> f32 [B, N];
+    -inf in the columns where the optional row mask ``valid`` is False."""
+    return _sd.sparse_dot(q_idx, q_val, db_idx, db_val, valid)
 
 
 def sparse_dot_batched(q_idx, q_val, db_idx, db_val) -> torch.Tensor:

@@ -3,8 +3,10 @@
 Port of the Pallas kernels ``repro/kernels/pq_score.py::pq_score_batched``
 (codes per query: the ``fused=False`` shortlist) and ``::pq_score`` (codes
 shared by every query). The CUDA source is ``csrc/pq_score.cu``; it takes
-the shared form as a codes batch stride of 0 and notes its design and
-bound.
+the shared form as a codes batch stride of 0 and notes its design (a
+block stages its tables once for a long run of candidates, several
+queries' tables in the shared form; codes read as one word a candidate
+where M and their alignment allow) and bound.
 
 Result contract (bitwise, kernel == plain version): each score is the
 sum of the candidate's table entries over the subspaces in order, left to
@@ -21,7 +23,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import pq_score_seq_ref
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-             + [ctypes.c_longlong, ctypes.c_void_p])
+             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
 
 
 def pq_score_plain(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
@@ -46,13 +48,14 @@ def _on_card(lut, codes, what: str) -> bool:
 
 
 def _launch(lut, codes, n: int, batch_rows: int, what: str) -> torch.Tensor:
+    """One launch on the tensors' device and current stream (no device
+    context); only non-contiguous arguments are copied."""
     b, m, c = lut.shape
     lut, codes = lut.contiguous(), codes.contiguous()
     out = torch.empty((b, n), dtype=torch.float32, device=lut.device)
     launch = _build.function("pq_score", "pq_score_launch", _ARGTYPES)
-    with torch.cuda.device(lut.device):
-        code = launch(_build.ptr(lut), _build.ptr(codes), _build.ptr(out),
-                      b, n, m, c, batch_rows, _build.stream_of(lut))
+    code = launch(lut.data_ptr(), codes.data_ptr(), out.data_ptr(), b, n, m,
+                  c, batch_rows, lut.device.index, _build.stream_of(lut))
     _build.check(code, "pq_score", f"{what} launch")
     return out
 

@@ -33,14 +33,6 @@ def topk_ref(scores: torch.Tensor, k: int):
     return torch.gather(scores, -1, idxs), idxs
 
 
-def sparse_dot_ref(q_idx, q_val, db_idx, db_val) -> torch.Tensor:
-    """Padded sparse-sparse scores. q [B,Kq], db [N,Kd] -> [B, N]."""
-    eq = (q_idx[:, None, :, None] == db_idx[None, :, None, :]) \
-        & (q_idx[:, None, :, None] != PAD_INDEX)
-    prod = q_val[:, None, :, None].float() * db_val[None, :, None, :].float()
-    return torch.where(eq, prod, 0.0).sum((2, 3))
-
-
 def sparse_dot_batched_ref(q_idx, q_val, db_idx, db_val) -> torch.Tensor:
     """Per-query rows: q [B,Kq] vs db [B,R,Kd] -> [B, R]."""
     eq = (q_idx[:, None, :, None] == db_idx[:, :, None, :]) \
@@ -50,10 +42,10 @@ def sparse_dot_batched_ref(q_idx, q_val, db_idx, db_val) -> torch.Tensor:
 
 
 def sparse_dot_seq_ref(q_idx, q_val, db_idx, db_val) -> torch.Tensor:
-    """Per-query rows in the rescore kernel's order (the bitwise contract
-    of ``sparse_rescore_topk``): db entry j outer, query entry i inner,
-    one rounded product and one rounded add each; a non-match adds +0.0,
-    which leaves a sum that starts at +0.0 unchanged.
+    """Per-query rows in the sparse-dot kernels' order (their bitwise
+    contract; a shared db is broadcast over B): db entry j outer, query
+    entry i inner, one rounded product and one rounded add each; a
+    non-match adds +0.0, which leaves a sum that starts at +0.0 unchanged.
     q [B,Kq] vs db [B,R,Kd] -> [B, R]."""
     acc = torch.zeros(db_idx.shape[:2], dtype=torch.float32,
                       device=q_val.device)

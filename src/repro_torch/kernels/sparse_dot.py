@@ -4,16 +4,17 @@ and the index's rescore step.
 Port of the Pallas kernels ``repro/kernels/sparse_dot.py::
 sparse_dot_batched`` (per-query rows: the shortlist rescore) and
 ``::sparse_dot`` (one db for every query: the brute-force index). The
-CUDA source is ``csrc/sparse_dot.cu``; it takes the shared form as a db
-batch stride of 0 and notes its design and bound.
+CUDA source is ``csrc/sparse_dot.cu``, which notes each kernel's design
+and bound: the shared form reads each db tile once and looks its indices
+up in a hash table of the queries' indices, and can mask rows (``valid``)
+so that the brute index's search needs no pass of its own.
 
 ``sparse_rescore_topk`` is ``sparse_dot_batched`` redesigned with what
 surrounds it on the index's path (``repro/ann/scann.py:126-144``): the
 shortlist's slots, the slab rows, the exact sparse dot, the mask and the
-final top-k in one launch. The per-query forms give bitwise the results
-of their plain versions: the kernels sum in the order of
-``ref.sparse_dot_seq_ref``, and the rescore's top-k is ``lax.top_k``'s
-order (``ref.topk_ref``).
+final top-k in one launch. Every form gives bitwise the results of its
+plain version: the kernels sum in the order of ``ref.sparse_dot_seq_ref``,
+and the rescore's top-k is ``lax.top_k``'s order (``ref.topk_ref``).
 
 Indices are uint32 values in int64 tensors (``core/types.py``); the
 kernels read them through an int32 view without a copy. Each wrapper runs
@@ -27,11 +28,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import sparse_dot_ref, sparse_dot_seq_ref, topk_ref
+from repro_torch.kernels.ref import sparse_dot_seq_ref, topk_ref
 from repro_torch.kernels.topk_select import CHUNK
 
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_SHARED_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                    + [ctypes.c_void_p])
 _RESCORE_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                      + [ctypes.c_void_p])
 # the rescore kernel sorts a row's shortlist in one block: up to the
@@ -41,19 +43,25 @@ MAX_REORDER = 2 * CHUNK
 _PLAIN_ELEMS = 1 << 24
 
 
-def sparse_dot_plain(q_idx, q_val, db_idx, db_val) -> torch.Tensor:
-    """Plain version of both forms: db [N, Kd] (shared) or [B, R, Kd].
-    Per-query rows sum in the kernels' order (``sparse_dot_seq_ref``), so
-    they agree with the kernel bit for bit."""
+def sparse_dot_plain(q_idx, q_val, db_idx, db_val, valid=None
+                     ) -> torch.Tensor:
+    """Plain version of both forms: db [N, Kd] (shared) or [B, R, Kd],
+    summed in the kernels' order (``sparse_dot_seq_ref``, the shared db
+    broadcast over the queries), so they agree with the kernels bit for
+    bit; a shared db's rows where ``valid`` is False score -inf."""
     if db_idx.dim() == 3:
         return sparse_dot_seq_ref(q_idx, q_val, db_idx, db_val)
     b, kq = q_idx.shape
     n, kd = db_idx.shape
     step = max(1, _PLAIN_ELEMS // max(b * kq * kd, 1))
-    return torch.cat([sparse_dot_ref(q_idx, q_val, db_idx[lo:lo + step],
-                                     db_val[lo:lo + step])
-                      for lo in range(0, n, step)] or
-                     [torch.zeros((b, 0), device=q_val.device)], dim=1)
+    out = torch.cat([sparse_dot_seq_ref(
+        q_idx, q_val, db_idx[None, lo:lo + step].expand(b, -1, -1),
+        db_val[None, lo:lo + step].expand(b, -1, -1))
+        for lo in range(0, n, step)] or
+        [torch.zeros((b, 0), device=q_val.device)], dim=1)
+    if valid is not None:
+        out = torch.where(valid[None, :], out, float("-inf"))
+    return out
 
 
 def _check(tensors: dict, dev: torch.device, what: str) -> None:
@@ -65,24 +73,17 @@ def _check(tensors: dict, dev: torch.device, what: str) -> None:
             raise ValueError(f"{what}: {name} is on {t.device}, not {dev}")
 
 
-def _launch(q_idx, q_val, db_idx, db_val, rows: int, batch_rows: int,
-            what: str) -> torch.Tensor:
-    b, kq = q_idx.shape
-    kd = db_idx.shape[-1]
-    dev = q_idx.device
+def _operands(q_idx, q_val, db_idx, db_val, what: str) -> list:
+    """The four operands checked and contiguous (copied only if not)."""
     _check({"q_idx": (q_idx, torch.int64), "q_val": (q_val, torch.float32),
             "db_idx": (db_idx, torch.int64),
-            "db_val": (db_val, torch.float32)}, dev, what)
-    q_idx, q_val, db_idx, db_val = (t.contiguous() for t in
-                                    (q_idx, q_val, db_idx, db_val))
-    out = torch.empty((b, rows), dtype=torch.float32, device=dev)
-    # the kernel reads the low 32-bit word of each int64 index
-    launch = _build.function("sparse_dot", "sparse_dot_launch", _ARGTYPES)
-    code = launch(q_idx.data_ptr(), q_val.data_ptr(), db_idx.data_ptr(),
-                  db_val.data_ptr(), out.data_ptr(), b, rows, kq, kd,
-                  batch_rows, dev.index, _build.stream_of(q_idx))
-    _build.check(code, "sparse_dot", f"{what} launch")
-    return out
+            "db_val": (db_val, torch.float32)}, q_idx.device, what)
+    if q_val.shape != q_idx.shape or db_val.shape != db_idx.shape:
+        raise ValueError(f"{what}: values {tuple(q_val.shape)}/"
+                         f"{tuple(db_val.shape)} do not match indices "
+                         f"{tuple(q_idx.shape)}/{tuple(db_idx.shape)}")
+    # the kernels read the low 32-bit word of each int64 index
+    return [t.contiguous() for t in (q_idx, q_val, db_idx, db_val)]
 
 
 def sparse_dot_batched(q_idx, q_val, db_idx, db_val) -> torch.Tensor:
@@ -91,20 +92,43 @@ def sparse_dot_batched(q_idx, q_val, db_idx, db_val) -> torch.Tensor:
         raise ValueError(f"db must be [B, R, Kd], got {tuple(db_idx.shape)}")
     if _build.device_kind(q_idx, "sparse_dot_batched") == "cpu":
         return sparse_dot_plain(q_idx, q_val, db_idx, db_val)
-    r = db_idx.shape[1]
-    out = _launch(q_idx, q_val, db_idx, db_val, r, r, "sparse_dot_batched")
+    args = _operands(q_idx, q_val, db_idx, db_val, "sparse_dot_batched")
+    b, kq = q_idx.shape
+    r, kd = db_idx.shape[1], db_idx.shape[2]
+    out = torch.empty((b, r), dtype=torch.float32, device=q_idx.device)
+    launch = _build.function("sparse_dot", "sparse_dot_launch", _ARGTYPES)
+    code = launch(*[t.data_ptr() for t in args], out.data_ptr(), b, r, kq,
+                  kd, q_idx.device.index, _build.stream_of(q_idx))
+    _build.check(code, "sparse_dot", "sparse_dot_batched launch")
     sparse_dot_batched.launches += 1
     return out
 
 
-def sparse_dot(q_idx, q_val, db_idx, db_val) -> torch.Tensor:
-    """Shared db (brute force): q [B, Kq] vs db [N, Kd] -> f32 [B, N]."""
+def sparse_dot(q_idx, q_val, db_idx, db_val, valid=None) -> torch.Tensor:
+    """Shared db (brute force): q [B, Kq] vs db [N, Kd] -> f32 [B, N];
+    with ``valid`` (bool [N]) the rows where it is False score -inf."""
     if db_idx.dim() != 2:
         raise ValueError(f"db must be [N, Kd], got {tuple(db_idx.shape)}")
+    n = db_idx.shape[0]
+    if valid is not None and (valid.dtype != torch.bool
+                              or tuple(valid.shape) != (n,)):
+        raise ValueError(f"sparse_dot: valid must be bool [{n}], got "
+                         f"{valid.dtype} {tuple(valid.shape)}")
     if _build.device_kind(q_idx, "sparse_dot") == "cpu":
-        return sparse_dot_plain(q_idx, q_val, db_idx, db_val)
-    out = _launch(q_idx, q_val, db_idx, db_val, db_idx.shape[0], 0,
-                  "sparse_dot")
+        return sparse_dot_plain(q_idx, q_val, db_idx, db_val, valid)
+    args = _operands(q_idx, q_val, db_idx, db_val, "sparse_dot")
+    if valid is not None:
+        _check({"valid": (valid, torch.bool)}, q_idx.device, "sparse_dot")
+        args.append(valid.contiguous())
+    b, kq = q_idx.shape
+    out = torch.empty((b, n), dtype=torch.float32, device=q_idx.device)
+    launch = _build.function("sparse_dot", "sparse_dot_shared_launch",
+                             _SHARED_ARGTYPES)
+    code = launch(*[t.data_ptr() for t in args[:4]],
+                  None if valid is None else args[4].data_ptr(),
+                  out.data_ptr(), b, n, kq, db_idx.shape[1],
+                  q_idx.device.index, _build.stream_of(q_idx))
+    _build.check(code, "sparse_dot", "sparse_dot launch")
     sparse_dot.launches += 1
     return out
 

@@ -135,6 +135,71 @@ def test_brute_matches_reference(corpus):
         np.testing.assert_array_equal(got, want)
 
 
+def _tie_rows(rng, n: int, kd: int, vocab: int, lo: int = 0):
+    """Sorted indices in [lo, lo + vocab) with about a fifth padding and
+    values in {-1, 0, +1}: integer scores (exact in any order) with many
+    ties, cancelling products and -0.0 products."""
+    idx = rng.integers(lo, lo + vocab, (n, kd)).astype(np.uint32)
+    idx = np.sort(np.where(rng.random((n, kd)) < 0.2,
+                           np.uint32(0xFFFFFFFF), idx), axis=1)
+    val = rng.choice(np.asarray([-1.0, 0.0, 1.0], np.float32), (n, kd))
+    return idx, np.where(idx == 0xFFFFFFFF, 0.0, val).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def tie_indexes():
+    """The reference's and the port's brute index on the same rows: 500
+    from a vocabulary of 15 (ties), 300 from a disjoint one (they score 0
+    against every query: more zeros than k), 90 deleted (tombstones) and
+    30 updated; 12 queries, one all padding."""
+    rng = np.random.default_rng(21)
+    idx, val = (np.concatenate(p) for p in zip(
+        _tie_rows(rng, 500, 6, 15), _tie_rows(rng, 300, 6, 8, lo=1000)))
+    qi, qv = _tie_rows(rng, 12, 6, 15)
+    qi[3], qv[3] = 0xFFFFFFFF, 0.0
+    ids = np.arange(len(idx)) * 3 + 7
+    upd = rng.permutation(len(idx))[:30]
+    both = []
+    for make, batch in ((JBruteIndex, lambda i, v: JSparseBatch(
+            jnp.asarray(i), jnp.asarray(v))), (
+            lambda k: BruteIndex(k, device="cpu"), lambda i, v: SparseBatch(
+                torch.as_tensor(i.astype(np.int64)), torch.as_tensor(v)))):
+        index = make(6)
+        index.upsert(ids, batch(idx, val))
+        index.delete(ids[::9])
+        index.upsert(ids[upd], batch(idx[-30:], val[-30:]))
+        both.append((index, batch(qi, qv)))
+    return both
+
+
+@pytest.mark.parametrize("k", [10, 70, 1100])
+def test_brute_search_ties_zeros_tombstones(tie_indexes, k):
+    """The port's search (the masked sparse dot, then the top-k in
+    lax.top_k's order) against the reference's ``sparse_dot`` -> mask ->
+    ``lax.top_k``: ids exactly and distances bit for bit, at exact ties,
+    among zero scores (the lowest slot first), past the live rows (k =
+    1,100 > 1,024 slots: -1 / +inf pads)."""
+    (jb, jq), (tb, tq) = tie_indexes
+    want, got = jb.search(jq, k), tb.search(tq, k)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert np.array_equal(got[1].view(np.int32), want[1].view(np.int32))
+    # the padding query scores 0 against every live row: its cut is all
+    # zeros, taken by the lowest slot
+    assert ((got[1] == 0).sum(1) == min(k, len(tb))).any()
+
+
+@pytest.mark.parametrize("tau", [0.0, -1.0, 2.5])
+def test_brute_search_threshold_matches_reference(tie_indexes, tau):
+    """``search_threshold`` (all points with Dist < tau) row by row: ids
+    exactly, distances bit for bit."""
+    (jb, jq), (tb, tq) = tie_indexes
+    want, got = jb.search_threshold(jq, tau), tb.search_threshold(tq, tau)
+    assert len(got) == len(want) == 12
+    for (gi, gd), (wi, wd) in zip(got, want):
+        np.testing.assert_array_equal(gi, wi)
+        assert np.array_equal(gd.view(np.int32), wd.view(np.int32))
+
+
 def test_scann_tie_aware_recall(corpus):
     """The port's own build (torch-seeded k-means and codebooks) against the
     exact index, as tests/test_ann.py::test_scann_tie_aware_recall."""

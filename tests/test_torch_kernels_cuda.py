@@ -11,8 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.ann.brute import BruteIndex
 from repro_torch.core.scorer import pair_layout
-from repro_torch.core.types import PAD_INDEX
+from repro_torch.core.types import PAD_INDEX, SparseBatch
 from repro_torch.data.synthetic import OGB_ARXIV_LIKE, OGB_PRODUCTS_LIKE
 from repro_torch.kernels import (cases, fused_query, ops, pq_score,
                                   scorer_mlp, sparse_dot, topk_select)
@@ -114,10 +115,16 @@ def test_sparse_dot_batched_matches_plain(card, unit):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+def _bits_equal(got, want) -> bool:
+    """f32 tensors equal bit for bit (the signs of zeros included)."""
+    return torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 @pytest.mark.parametrize("n,unit", [(262_144, True), (4099, False)])
 def test_sparse_dot_shared_db_matches_plain(card, n, unit):
     """The brute-force form at the capacity the arxiv-scale index reaches
-    (N = 262,144, 64 queries) and at a ragged N with IDF-like weights."""
+    (N = 262,144, 64 queries) and at a ragged N with IDF-like weights;
+    bitwise (the plain version sums in the kernel's order)."""
     rng = np.random.default_rng(n)
     q = cases.sparse_rows(rng, (64, 9), 5000, unit)
     db = cases.sparse_rows(rng, (n, 9), 5000, unit)
@@ -127,10 +134,71 @@ def test_sparse_dot_shared_db_matches_plain(card, n, unit):
     want = sparse_dot.sparse_dot_plain(*args)
     torch.cuda.synchronize()
     assert sparse_dot.sparse_dot.launches == before + 1
-    if unit:
-        assert torch.equal(got, want)
-    else:
-        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert _bits_equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["B=1", "B=63", "B=64", "B=300",
+                                  "Kq=40 Kd=5", "Kq=3 Kd=16", "padding rows",
+                                  "repeated indices", "row mask"])
+def test_sparse_dot_shared_db_cases(card, name):
+    """The shared form's query chunks, index tables and masks
+    (``cases.sparse_dot_cases``), bitwise with IDF-like weights."""
+    arrays = dict(cases.sparse_dot_cases(np.random.default_rng(3)))[name]
+    args = [None if a is None else torch.as_tensor(a).to(card)
+            for a in arrays]
+    got = ops.sparse_dot(*args)
+    want = sparse_dot.sparse_dot_plain(*args)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want)
+    if name == "row mask":
+        assert torch.isneginf(got[:, ~args[4]]).all()
+
+
+def _brute(dev, rows, capacity: int = 1024) -> BruteIndex:
+    """A brute index on ``dev`` holding ``rows`` (ids 0..N-1), every
+    third of the first 3,000 deleted and 500 updated from later rows."""
+    idx, val = (torch.as_tensor(a) for a in rows)
+    ids = np.arange(len(idx))
+    index = BruteIndex(idx.shape[1], capacity, device=dev)
+    index.upsert(ids, SparseBatch(idx.to(dev), val.to(dev)))
+    index.delete(ids[:3000:3])
+    index.upsert(ids[3000:3500], SparseBatch(idx[-500:].to(dev),
+                                             val[-500:].to(dev)))
+    return index
+
+
+@pytest.mark.parametrize("unit", [True, False])
+def test_brute_search_matches_cpu(card, unit):
+    """BruteIndex.search on the card (the masked sparse-dot kernel, then
+    the split top-k in lax.top_k's order) equals the same index on the
+    CPU: 64 queries, k = 10 and k = 300, a 131,072-slot index with
+    tombstones; vocabulary 300, so scores tie and many rows score 0;
+    ids exactly, distances bitwise."""
+    rng = np.random.default_rng(15)
+    rows = cases.sparse_rows(rng, (100_000, 9), 300, unit)
+    q = [torch.as_tensor(a) for a in cases.sparse_rows(rng, (64, 9), 300,
+                                                       unit)]
+    on_card, on_cpu = _brute(card, rows), _brute("cpu", rows)
+    assert on_card.capacity == 131_072
+    for k in (10, 300):
+        before = sparse_dot.sparse_dot.launches
+        got = on_card.search(SparseBatch(q[0].to(card), q[1].to(card)), k)
+        want = on_cpu.search(SparseBatch(*q), k)
+        assert sparse_dot.sparse_dot.launches == before + 1
+        np.testing.assert_array_equal(got[0], want[0])
+        assert np.array_equal(got[1].view(np.int32), want[1].view(np.int32))
+
+
+def test_brute_search_refuses_k_past_split(card):
+    """On the card a k that the split top-k does not take raises, naming
+    the limit, instead of falling back to a sort."""
+    rng = np.random.default_rng(16)
+    index = _brute(card, cases.sparse_rows(rng, (9000, 9), 300, True))
+    assert index.capacity == 16_384
+    q = [torch.as_tensor(a).to(card)
+         for a in cases.sparse_rows(rng, (4, 9), 300, True)]
+    with pytest.raises(ValueError, match="k <= 4096"):
+        index.search(SparseBatch(*q), 4097)
 
 
 @pytest.mark.parametrize("b,f,h", [(160, 3, 10), (1, 7, 32), (1000, 5, 1)])
@@ -246,7 +314,32 @@ def test_pq_score_matches_plain_bitwise(card, form, b, n, m, c):
     want = pq_score.pq_score_plain(lut, codes)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
-    assert torch.equal(got, want)
+    assert _bits_equal(got, want)
+
+
+@pytest.mark.parametrize("name", [
+    "M=4 C=16 B=1 N=1001 batched", "M=8 C=256 B=300 N=777 batched",
+    "M=16 C=256 B=3 N=4097 batched", "M=16 C=16 B=300 N=1001 shared",
+    "M=4 C=256 B=1 N=70001 shared", "M=8 C=16 B=17 N=5000 shared",
+    "M=5 C=20 B=3 N=1001 batched", "offset view"])
+def test_pq_score_load_paths(card, name):
+    """Every code-load path of the kernel (``cases.pq_score_cases``):
+    4-, 8- and 16-byte words, bytes at an odd M and at codes one byte off
+    their buffer, several tables a block in the shared form; bitwise."""
+    lut, codes, shared = {c[0]: c[1:] for c in
+                          cases.pq_score_cases(np.random.default_rng(4))}[name]
+    lut = torch.as_tensor(lut).to(card)
+    codes = torch.as_tensor(codes).to(card)
+    if name == "offset view":
+        buf = torch.empty(codes.numel() + 1, dtype=torch.uint8, device=card)
+        buf[1:].copy_(codes.flatten())
+        codes = buf[1:].view(codes.shape)
+        assert codes.is_contiguous() and codes.data_ptr() % 8 == 1
+    fn = pq_score.pq_score if shared else pq_score.pq_score_batched
+    got = fn(lut, codes)
+    want = pq_score.pq_score_plain(lut, codes)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want)
 
 
 def _rescore_check(case, k, dev):

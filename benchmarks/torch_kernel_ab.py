@@ -32,8 +32,9 @@ Steps, the functions both trees have, on state made here from seeds:
 ``ann.scann._query_step`` at B=16 and B=256 on one index state of the
 arxiv layout (661 partitions of slabs of 4,096, probe 8, reorder 128,
 k = 11, a slab of 262,144 rows of K = 9), each checked against the same
-step on the CPU (the plain versions); ``_query_step`` with ``fused=False`` at B=16 (the pq-score kernel, the
-top-k and the dedup mask), checked likewise; ``core.scorer.score_pairs`` on
+step on the CPU (the plain versions); ``_query_step`` with
+``fused=False`` at B=16 (the pq-score kernel, the top-k and the dedup
+mask), checked likewise; ``core.scorer.score_pairs`` on
 arxiv feature rows at P=160 and P=4,096, aligned (both trees), and as the
 neighborhood RPC scores (``rpc``: the parent repeats each query row on
 the host, a tree whose ``score_pairs`` takes ``group`` passes the query

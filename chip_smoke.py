@@ -27,6 +27,17 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    the adjacency must be exactly symmetric and its connected components
    equal to union-find over its edges; edge recall against an offline
    rebuild at matched k on 1,024 live ids drawn with a fixed seed;
+5m. the multi-modal plane: (a) ``products-multimodal``, an
+   ogbn-products-like corpus (dense 100, a co-purchase set of 16) at
+   169,343 points, 60% bootstrapped, with launch/serve.py's buckets and
+   index (k_max 14) and ``MultiModalConfig(sparse_k=10, d_sketch=64,
+   idf_size=512, filter_percent=1.0, reload_every=5)``: the main path's
+   traffic (set-up RPCs timed apart, 20 batches of 64, a 16-id
+   neighborhood RPC after every other one) through the two-stage
+   retrieval, whose exact distances run sparse_dot_batched and whose
+   rescore runs pair_score; same-cluster rate > 0.7; (b) the
+   Android-Security time-to-flag (``benchmarks/torch_time_to_flag.py``)
+   on the card, ratio >= 2.0;
 5. hold every kernel against its plain PyTorch version on the card at the
    shapes the paths reached, plus edge cases (fused_query, its int8
    instance, topk_select, both pq_score forms, both sparse_dot forms and
@@ -35,23 +46,31 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    time kernel, plain
    version and, for the top-k, ``torch.topk`` with CUDA events, plus each
    kernel's device time per call from ``torch.profiler`` (fused_query,
-   sparse_rescore_topk and pair_score also at the graph's shapes; the
-   top-k above k = 64 against the stable sort, with the route
-   ``ops.topk_select`` takes there);
+   sparse_rescore_topk and pair_score also at the graph's shapes and the
+   products-multimodal RPC's; the top-k above k = 64 against the stable
+   sort, with the route ``ops.topk_select`` takes there). Phase 5m
+   records the shape of every two-stage retrieval and brute search it
+   makes, and phase 5 checks sparse_dot_batched, pair_score, the masked
+   sparse_dot and topk_select at each of them;
 6. print one JSON line with each kernel's numbers, then the result line.
 
-Phases 2-4 each zero the kernel launch counts just before they start and
-read them just after; every kernel a phase runs must have launched in it.
-The paths reach the exact rescore through ``sparse_rescore_topk`` and
-pair scoring through ``pair_score``; the standalone kernels of the same
-TPU kernels (``sparse_dot_batched``, ``scorer_mlp``) and ``pq_score``
+Phases 2-4 and 5m each zero the kernel launch counts just before they
+start and read them just after; every kernel a phase runs must have
+launched in it. The index paths reach the exact rescore through
+``sparse_rescore_topk`` and pair scoring through ``pair_score``, so
+phases 2-4 must not launch the standalone ``sparse_dot_batched`` or
+``scorer_mlp``; the multi-modal phase runs ``sparse_dot_batched`` itself
+and must not launch ``scorer_mlp``. ``scorer_mlp`` and ``pq_score``
 (shared codes) have no caller on a path, so their launches are counted
-around one call each in phase 5.
+around one call each in phase 5. Phase 5 also holds the top-k sizes past
+the split's old limits (k > 4,096 on long rows, shortlists over 8,192,
+the fused shortlist at k = 4,097) bitwise against the plain versions.
 
 It imports nothing of JAX and nothing of the reference package.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -137,7 +156,8 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
     paths' shapes (``shapes``); the fused shortlist (both instances) also
     at its edge cases and the cases that cross its split into chunks, the
     f32 one at B=256 and at a 65,536-candidate slab, the top-k selection
-    at its edge and split cases, in both of the reference's orders (the
+    at its edge and split cases, in both of the reference's orders, and
+    the kernels of the multi-modal phase at every shape it recorded (the
     inputs come from ``repro_torch.kernels.cases``, shared with the card
     tests)."""
     from repro_torch.core.scorer import pair_layout
@@ -196,12 +216,17 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
     # sparse_dot (both forms), bitwise at unit and IDF-like weights (the
     # plain version sums in the kernels' order). A sparse entry is a u32
     # index and an f32 value: the function needs 8 bytes of it (the port
-    # holds indices in int64 and the kernels read their low words). No
-    # path calls sparse_dot_batched (the rescore runs sparse_rescore_topk):
-    # its launches are counted around its first call here. The shared
-    # form also runs its edge cases (cases.sparse_dot_cases)
+    # holds indices in int64 and the kernels read their low words).
+    # sparse_dot_batched at the multi-modal path's shape (16 queries x
+    # r_max candidates of K = 14) and at the rescore's (which the index
+    # path runs fused, as sparse_rescore_topk). The shared form also runs
+    # its edge cases (cases.sparse_dot_cases)
     kd = shapes["k_dims"]
+    mm_b, mm_r, mm_k = shapes["mm"]
     forms = {"sparse_dot_batched": (
+                 sparse_dot.sparse_dot_batched, 40, (mm_b, mm_k),
+                 (mm_b, mm_r, mm_k)),
+             "sparse_dot_batched rescore shape": (
                  sparse_dot.sparse_dot_batched, 40,
                  (shapes["fq_b"], kd), (shapes["fq_b"], shapes["reorder"], kd)),
              "sparse_dot": (sparse_dot.sparse_dot, 50_000,
@@ -238,40 +263,102 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
             raise AssertionError(f"sparse_dot differs ({name})")
         print(f"[kernels] sparse_dot {name}: bitwise equal")
 
+    # every shape the multi-modal phase gave: sparse_dot_batched at each
+    # two-stage retrieval's (rows, r_max, K) (its pair_score below), and
+    # each brute search of the time-to-flag, the masked shared sparse_dot
+    # over the index's slots and the top-k in lax.top_k's order; unit
+    # values (ties) and IDF-like ones, bitwise
+    for _, rows, r_max, kdim in shapes["mm_calls"]:
+        for unit in (True, False):
+            args = on_card([*cases.sparse_rows(rng, (rows, kdim), 40, unit),
+                            *cases.sparse_rows(rng, (rows, r_max, kdim), 40,
+                                               unit)])
+            got = sparse_dot.sparse_dot_batched(*args)
+            want = sparse_dot.sparse_dot_plain(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"sparse_dot_batched differs at "
+                                     f"{(rows, r_max, kdim)} (unit={unit})")
+        print(f"[kernels] sparse_dot_batched q=({rows}, {kdim}) "
+              f"db=({rows}, {r_max}, {kdim}): bitwise equal")
+    for b, kdim, slots, k in shapes["brute_calls"]:
+        for unit in (True, False):
+            args = on_card([*cases.sparse_rows(rng, (b, kdim), 40, unit),
+                            *cases.sparse_rows(rng, (slots, kdim), 40, unit),
+                            rng.random(slots) < 0.7])
+            got = sparse_dot.sparse_dot(*args)
+            want = sparse_dot.sparse_dot_plain(*args)
+            top = topk_select.topk_select(got, k, signed_zeros=True)
+            top_want = topk_select.topk_select_plain(want, k,
+                                                     signed_zeros=True)
+            torch.cuda.synchronize()
+            if not (torch.equal(got.view(torch.int32), want.view(torch.int32))
+                    and _bitwise(torch, top, top_want)):
+                raise AssertionError(f"the brute search's kernels differ at "
+                                     f"{(b, kdim, slots, k)} (unit={unit})")
+        print(f"[kernels] brute search B={b} K={kdim} slots={slots} k={k}: "
+              f"sparse_dot and topk_select bitwise equal")
+
     # sparse_rescore_topk: the shortlist's slots, slab rows, exact sparse
     # dot, mask and final top-k of the main path's search (16 queries,
     # k = scann_nn + 1) and of graph seeding (256 queries, k = probe + 1)
-    # over the index's N, reorder and capacity; unit values (ties across
-    # shortlist positions) and IDF-like ones, bitwise
-    n, r, cap = shapes["fq_n"], shapes["reorder"], shapes["capacity"]
-    for name, (b, k) in (("sparse_rescore_topk", shapes["rescore"]),
-                         ("sparse_rescore_topk graph",
-                          shapes["rescore_graph"])):
-        for unit in (True, False):
-            case = cases.rescore_inputs(rng, b, n, r, cap, kd, 40, unit)
-            args = on_card([case[a] for a in cases.RESCORE_ORDER])
-            got = ops.sparse_rescore_topk(*args, k)
-            want = sparse_dot.sparse_rescore_topk_plain(*args, k)
-            torch.cuda.synchronize()
-            if not (torch.equal(got[0], want[0]) and torch.equal(
-                    got[1].view(torch.int32), want[1].view(torch.int32))):
-                raise AssertionError(f"{name} differs from its plain "
-                                     f"version (unit={unit})")
-            print(f"[kernels] {name} B={b} r={r} k={k} unit={unit}: "
-                  f"bitwise equal")
+    # over the index's N, reorder and capacity, and of the multi-modal
+    # phase's products index (its N, capacity and K = k_max); unit values
+    # (ties across shortlist positions) and IDF-like ones, bitwise
+    def check_rescore(b, n, r, cap, kdim, k, unit):
+        case = cases.rescore_inputs(rng, b, n, r, cap, kdim, 40, unit)
+        args = on_card([case[a] for a in cases.RESCORE_ORDER])
+        got = ops.sparse_rescore_topk(*args, k)
+        want = sparse_dot.sparse_rescore_topk_plain(*args, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(
+                got[1].view(torch.int32), want[1].view(torch.int32))):
+            raise AssertionError(f"sparse_rescore_topk differs from its "
+                                 f"plain version (B={b} N={n} r={r} "
+                                 f"K={kdim} k={k} unit={unit})")
+        print(f"[kernels] sparse_rescore_topk B={b} N={n} r={r} K={kdim} "
+              f"k={k} unit={unit}: bitwise equal")
+        return args, got, want
+
+    def rescore_row(args, got, want, k):
         # q, shortlist (position, score), the slot of each entry, the
         # slab rows of the live entries, out (slot, dist)
+        b, kdim = args[0].shape
+        r = args[3].shape[1]
         short_slots = torch.gather(args[2], 1, args[3].long())
         live = int((torch.isfinite(args[4]) & (short_slots >= 0)).sum())
-        bound, by = _bound_ms(b * kd * 8 + b * r * 8 + b * r * 4
-                              + live * kd * 8 + b * k * 8,
-                              live * kd * kd + b * r)
-        report[name] = dict(
-            shape=f"B={b} N={n} r={r} K={kd} k={k} cap={cap}",
+        bound, by = _bound_ms(b * kdim * 8 + b * r * 8 + b * r * 4
+                              + live * kdim * 8 + b * k * 8,
+                              live * kdim * kdim + b * r)
+        return dict(
+            shape=f"B={b} N={args[2].shape[1]} r={r} K={kdim} k={k} "
+                  f"cap={args[5].shape[0]}",
             max_abs_err=_max_abs_err(got[1], want[1]),
             **_timed(torch, lambda: ops.sparse_rescore_topk(*args, k),
                      lambda: sparse_dot.sparse_rescore_topk_plain(*args, k)),
             bound_ms=bound, bound_by=by)
+
+    index = (shapes["fq_n"], shapes["reorder"], shapes["capacity"], kd)
+    (b, k), (b_graph, k_graph) = shapes["rescore"], shapes["rescore_graph"]
+    for name, (b, n, r, cap, kdim, k) in (
+            ("sparse_rescore_topk", (b, *index, k)),
+            ("sparse_rescore_topk graph", (b_graph, *index, k_graph)),
+            ("sparse_rescore_topk multimodal", shapes["mm_rescore"])):
+        for unit in (True, False):
+            res = check_rescore(b, n, r, cap, kdim, k, unit)
+        report[name] = rescore_row(*res, k)
+
+    # Part A: past the split's old limits. Sparse_rescore_topk on
+    # shortlists of 8,193 and 16,384 (the keys route: a [B, r] scratch,
+    # then the split top-k) at the main path's B, slab and capacity over
+    # N = 32,768, k = 5,000 (pairwise merge) and k = scann_nn + 1 (halving
+    # merge; timed); bitwise
+    part_a = {}
+    for r in (8193, 16384):
+        for k in (5000, shapes["rescore"][1]):
+            res = check_rescore(shapes["fq_b"], 32768, r, shapes["capacity"],
+                                kd, k, True)
+        part_a[f"sparse_rescore_topk r={r}"] = rescore_row(*res, k)
 
     # fused_query_int8: the same cases through the int8 table (quantised on
     # the card, as the shortlist does); bitwise everywhere
@@ -331,6 +418,62 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
                          lambda: topk_select.topk_select_plain(scores, k)),
                 library_ms=_time_ms(lambda: torch.topk(scores, k), torch),
                 bound_ms=bound, bound_by=by)
+
+    # Part A: k past half a chunk on long rows (the pairwise merge), in
+    # both signed-zero orders, bitwise (cases.topk_long_k_cases); the
+    # first two timed in lax.top_k's order beside torch.topk; then the
+    # fused shortlist at k = 4,097 over 32,768 candidates (its pairwise
+    # merge and dedup kernel), both tables
+    for name, scores, k in cases.topk_long_k_cases(rng):
+        scores = torch.as_tensor(scores).to(dev)
+        for signed in (False, True):
+            got = topk_select.topk_select(scores, k, signed_zeros=signed)
+            want = topk_select.topk_select_plain(scores, k,
+                                                 signed_zeros=signed)
+            torch.cuda.synchronize()
+            if not _bitwise(torch, got, want):
+                raise AssertionError(f"topk_select differs from its plain "
+                                     f"version ({name}, signed={signed})")
+        print(f"[kernels] topk_select {name}: bitwise equal in both orders")
+        if name in ("B=4 N=32768 k=4097", "B=2 N=131072 k=16384"):
+            b, n = scores.shape
+            bound, by = _bound_ms(b * n * 4 + b * k * 8, b * n)
+            part_a[f"topk_select {name}"] = dict(
+                shape=name, max_abs_err=_max_abs_err(got[0], want[0]),
+                **_timed(torch, lambda: topk_select.topk_select(
+                    scores, k, signed_zeros=True),
+                    lambda: topk_select.topk_select_plain(
+                        scores, k, signed_zeros=True)),
+                library_ms=_time_ms(lambda: torch.topk(scores, k), torch),
+                bound_ms=bound, bound_by=by)
+    inputs = cases.fused_query_inputs(rng, shapes["fq_b"], 32768, 8, 256,
+                                      16384, 0.1)
+    args = on_card([inputs[a] for a in cases.FQ_ORDER])
+    k = 4097
+    for int8 in (False, True):
+        table = ops.quantize_lut(args[0]) if int8 else (args[0],)
+        kernel, plain = ((fused_query.fused_query_kernel_int8,
+                          fused_query.fused_query_int8_plain) if int8 else
+                         (fused_query.fused_query_kernel,
+                          fused_query.fused_query_plain))
+        got = kernel(*table, *args[1:], k)
+        want = plain(*table, *args[1:], k)
+        torch.cuda.synchronize()
+        if not _bitwise(torch, got, want):
+            raise AssertionError(f"fused_query (int8={int8}) differs from "
+                                 f"its plain version at k = {k}")
+        print(f"[kernels] fused_query int8={int8} N=32768 k={k}: bitwise "
+              f"equal")
+    b, n, m = args[1].shape
+    bound, by = _bound_ms(b * m * 256 * 4 + b * n * (m + 4 + 1 + 4)
+                          + b * k * 8, b * n * (m + 1) + b * n)
+    part_a[f"fused_query k={k}"] = dict(
+        shape=f"B={b} N={n} M={m} C=256 k={k}",
+        max_abs_err=_max_abs_err(got[0], want[0]),
+        **_timed(torch, lambda: fused_query.fused_query_kernel(*args, k),
+                 lambda: fused_query.fused_query_plain(*args, k)),
+        bound_ms=bound, bound_by=by)
+    print("[kernels] part A: " + json.dumps(part_a))
 
     # above k = 64 the reference runs lax.top_k; ops.topk_select runs the
     # kernel in that order, timed against the plain stable sort at the
@@ -434,13 +577,14 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
         bound_ms=bound, bound_by=by, launches=launches)
 
     # pair_score: the pair features and the MLP of the main path's 16
-    # queries x 10 neighbors and of a graph seeding chunk (256 x probe
-    # 16), on feature rows of the path's spec; rtol 1e-5, atol 1e-6
-    spec = shapes["spec"]
-    keys, layout = pair_layout(spec)
-    weights = on_card(cases.scorer_inputs(rng, 1, layout.n_features, h)[1:])
-    for name, (p, group) in (("pair_score", shapes["pair"]),
-                             ("pair_score graph", shapes["pair_graph"])):
+    # queries x 10 neighbors, of a graph seeding chunk (256 x probe 16)
+    # and of the products-multimodal RPC (16 x r_max), on feature rows of
+    # each path's spec, timed; then every two-stage retrieval's shape of
+    # the multi-modal phase (shapes["mm_calls"]); rtol 1e-5, atol 1e-6
+    def check_pairs(spec, p, group):
+        keys, layout = pair_layout(spec)
+        weights = on_card(cases.scorer_inputs(rng, 1, layout.n_features,
+                                              h)[1:])
         fq = cases.feature_rows(rng, spec, p // group)
         fc = cases.feature_rows(rng, spec, p)
         q = on_card([fq[key] for key in keys])
@@ -449,8 +593,15 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
         want = scorer_mlp.pair_score_plain(q, c, layout, group, *weights)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-        print(f"[kernels] {name} P={p} group={group}: max_abs_err "
-              f"{_max_abs_err(got, want)!r}")
+        print(f"[kernels] pair_score P={p} group={group} dims={layout.dims}: "
+              f"max_abs_err {_max_abs_err(got, want)!r}")
+        return q, c, layout, weights, got, want
+
+    for name, spec, (p, group) in (
+            ("pair_score", shapes["spec"], shapes["pair"]),
+            ("pair_score graph", shapes["spec"], shapes["pair_graph"]),
+            ("pair_score multimodal", shapes["mm_spec"], shapes["mm_pair"])):
+        q, c, layout, weights, got, want = check_pairs(spec, p, group)
         row_bytes = sum(4 * d for d in layout.dims)
         f = layout.n_features
         per_pair = sum(9 * d if kind == DENSE else d * d if kind == SET
@@ -467,6 +618,8 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
                      lambda: scorer_mlp.pair_score_plain(q, c, layout, group,
                                                          *weights)),
             bound_ms=bound, bound_by=by)
+    for spec, rows, r_max, _ in shapes["mm_calls"]:
+        check_pairs(spec, rows * r_max, r_max)
     return report
 
 
@@ -643,13 +796,15 @@ def run_main_path(torch, n_points: int, dev) -> tuple[dict, dict]:
     return out, shapes, ctx
 
 
-def _require_launched(counts: dict, names, where: str) -> None:
-    """Every kernel in ``names`` launched on ``where``, and neither
-    standalone kernel that the fused steps replace on the paths."""
+def _require_launched(counts: dict, names, where: str,
+                      forbidden=("sparse_dot_batched", "scorer_mlp")) -> None:
+    """Every kernel in ``names`` launched on ``where``, and no standalone
+    kernel in ``forbidden`` that the fused steps replace on the path (the
+    multi-modal path runs sparse_dot_batched itself)."""
     missing = [n for n in names if counts[n] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on {where}: {missing}")
-    stale = [n for n in ("sparse_dot_batched", "scorer_mlp") if counts[n]]
+    stale = [n for n in forbidden if counts[n]]
     if stale:
         raise AssertionError(f"{where} launched {stale}: the rescore and "
                              f"the pair scoring run fused")
@@ -735,24 +890,24 @@ def _check_symmetric(store) -> None:
         raise AssertionError("an entry references a dead slot")
 
 
-def host_profile(torch, gus, stream, n: int) -> list:
-    """Host time by Python function (cProfile, own time) over ``n``
-    mutation RPCs with their graph tick: where the host spends a tick."""
+def host_profile(torch, call, items: list, label: str) -> list:
+    """Host time by Python function (cProfile, own time) over ``call`` of
+    each of ``items``: where the host spends an RPC."""
     import cProfile
     import pstats
 
-    batches = [next(stream) for _ in range(n)]
     prof = cProfile.Profile()
     prof.enable()
-    for batch in batches:
-        gus.mutate(batch)
+    for item in items:
+        call(item)
     torch.cuda.synchronize()
     prof.disable()
+    n = len(items)
     stats = pstats.Stats(prof).stats
     top = sorted(stats.items(), key=lambda kv: kv[1][2], reverse=True)[:10]
     rows = [(f"{fn[0].rsplit('/', 1)[-1]}:{fn[1]}:{fn[2]}", calls // n,
              own * 1e3 / n) for fn, (_, calls, own, _, _) in top]
-    print("[profile] graph host, own ms per tick: " + json.dumps(rows))
+    print(f"[profile] {label} host, own ms per call: " + json.dumps(rows))
     return rows
 
 
@@ -853,7 +1008,9 @@ def run_graph_path(torch, dev, ctx: dict) -> tuple[dict, dict]:
                peak_mem_gb=peak_gb, launches=counts)
     print("[graph] symmetric; CC equals union-find; " + json.dumps(out))
     out["profile"] = profile_rpcs(torch, gus, stream, n=2, label="graph ")
-    out["host_top"] = host_profile(torch, gus, stream, n=2)
+    out["host_top"] = host_profile(torch, gus.mutate,
+                                   [next(stream) for _ in range(2)],
+                                   "graph mutate with tick")
     _require_launched(counts, ("topk_select", "fused_query",
                                "sparse_rescore_topk", "pair_score"),
                       "the graph path")
@@ -867,6 +1024,183 @@ def run_graph_path(torch, dev, ctx: dict) -> tuple[dict, dict]:
     return out, shapes
 
 
+# ---------------------------------------------------------------- phase 5m
+
+@contextlib.contextmanager
+def _record_calls(owner, name: str, key, into: set):
+    """Inside the block, every call of ``owner.name`` also adds
+    ``key(*args)`` to ``into``: the shapes a path gives a kernel's caller,
+    for phase 5 to check the kernel at."""
+    orig = getattr(owner, name)
+
+    def wrapped(*args, **kwargs):
+        into.add(key(*args, **kwargs))
+        return orig(*args, **kwargs)
+
+    setattr(owner, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+def _two_stage_key(gus, features, k, exclude_ids=None):
+    """(spec, query rows, r_max, K) of a two_stage_neighbors call: the
+    union is the dense search's k (+1 with exclusions) and sparse_k."""
+    rows = len(next(iter(features.values())))
+    return (gus.spec, rows,
+            k + (exclude_ids is not None) + gus.cfg.multimodal.sparse_k,
+            gus.embedder.k_max)
+
+
+def _brute_key(index, emb, k):
+    """(queries, K, slots, k) of a BruteIndex.search call."""
+    return (*emb.indices.shape, index.capacity, min(k, index.capacity))
+
+
+def run_multimodal_path(torch, n_points: int, dev) -> tuple[dict, dict]:
+    """The multi-modal phase: (a) the ``products-multimodal``
+    configuration, the main path's traffic on an ogbn-products-like corpus
+    cut to ``n_points`` with ``GusConfig(multimodal=...)`` (two-stage
+    retrieval: the sparse_dot_batched distances and pair_score rescore);
+    (b) the Android-Security time-to-flag through
+    ``benchmarks/torch_time_to_flag.py`` on the card. The launch counts
+    cover both. Returns the metrics and the shapes its kernels were
+    given."""
+    from repro_torch.ann.brute import BruteIndex
+    from repro_torch.ann.scann import ScannConfig
+    from repro_torch.core import gus as gus_module
+    from repro_torch.core.buckets import BucketConfig
+    from repro_torch.core.gus import DynamicGUS, GusConfig
+    from repro_torch.core.scorer import train_scorer
+    from repro_torch.data.stream import MutationStream, StreamConfig
+    from repro_torch.data.synthetic import (OGB_PRODUCTS_LIKE, labeled_pairs,
+                                            make_dataset)
+    from repro_torch.kernels import ops
+    from repro_torch.multimodal import MultiModalConfig
+    sys.path.insert(0, str(SRC.parent))
+    from benchmarks import torch_time_to_flag
+
+    data = dataclasses.replace(OGB_PRODUCTS_LIKE, n_points=n_points)
+    # launch/serve.py's buckets and serving config for this corpus
+    buckets = BucketConfig(dense_tables=8, dense_bits=10, set_tables=6,
+                           scalar_widths=(2.0,))
+    cfg = GusConfig(scann_nn=10, scann=ScannConfig(
+        d_proj=64, n_partitions=max(16, n_points // 256), nprobe=8,
+        reorder=128), multimodal=MultiModalConfig(
+            sparse_k=10, postings_cap=64, d_sketch=64, idf_size=512,
+            filter_percent=1.0, reload_every=5))
+    t0 = time.perf_counter()
+    ids, feats, cluster = make_dataset(data)
+    pf, lbl = labeled_pairs(feats, cluster, min(4 * n_points, 20_000),
+                            data.spec, seed=0)
+    stream = MutationStream(data, StreamConfig(seed=0), bootstrap_fraction=0.6)
+    boot_ids, boot_feats = stream.bootstrap()
+    print(f"[multimodal] data ready in {time.perf_counter() - t0:.1f} s: "
+          f"{n_points} points, {len(boot_ids)} bootstrapped")
+
+    # the shapes this phase gives the two-stage retrieval and the brute
+    # search, recorded until the launch counts are read
+    two_stage, brute = set(), set()
+    recording = contextlib.ExitStack()
+    recording.enter_context(_record_calls(
+        gus_module, "two_stage_neighbors", _two_stage_key, two_stage))
+    recording.enter_context(_record_calls(BruteIndex, "search", _brute_key,
+                                          brute))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scorer, losses = train_scorer(0, data.spec, pf, lbl, steps=300,
+                                  device=dev)
+    gus = DynamicGUS(data.spec, buckets, scorer, cfg, device=dev)
+    gus.bootstrap(boot_ids, boot_feats)
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    print(f"[multimodal] scorer loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"bootstrap {boot_s:.1f} s; k_max {gus.embedder.k_max}; "
+          + json.dumps(gus.multimodal.describe()))
+
+    gus.mutate(next(stream))
+    gus.neighbors_of_ids(stream.query_ids(16))
+    first_ms = (gus.mutation_timer.samples_ms.pop(),
+                gus.query_timer.samples_ms.pop())
+    rescore = gus.multimodal.obs.registry.get("multimodal_rescore_ms")
+    rescore.reset()                        # the set-up RPC's is not steady
+    same = []
+    for i, batch in zip(range(20), stream):
+        gus.mutate(batch)
+        if i % 2 == 1:
+            qids = stream.query_ids(16)
+            res = gus.neighbors_of_ids(qids)
+            if res.ids.shape != (16, 10) or not np.isfinite(
+                    res.weights[res.ids >= 0]).all():
+                raise AssertionError("multi-modal RPC returned bad rows")
+            same += [cluster[n] == cluster[q] for r, q in enumerate(qids)
+                     for n in res.ids[r] if 0 <= n < len(cluster)]
+    same_rate = float(np.mean(same))
+    torch.cuda.synchronize()
+    mut = gus.mutation_timer.summary()
+    qry = gus.query_timer.summary()
+    out = dict(config="products-multimodal", n_points=n_points,
+               bootstrapped=len(boot_ids), bootstrap_s=boot_s,
+               first_mutation_ms=first_ms[0], first_neighbors_ms=first_ms[1],
+               mutation_p50_ms=mut["p50_ms"], mutation_p99_ms=mut["p99_ms"],
+               neighbors_p50_ms=qry["p50_ms"], neighbors_p99_ms=qry["p99_ms"],
+               rescore_p50_ms=rescore.summary()["p50_ms"],
+               store=gus.multimodal.describe(), same_cluster=same_rate,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    # the union's width: dense k + 1 (the self id is dropped) + sparse_k
+    r_max = cfg.scann_nn + 1 + cfg.multimodal.sparse_k
+    out["profile"] = profile_rpcs(torch, gus, stream, label="multimodal ")
+    out["host_top"] = {
+        "neighbors": host_profile(torch, gus.neighbors_of_ids,
+                                  [stream.query_ids(16) for _ in range(4)],
+                                  "multimodal neighbors"),
+        "mutation": host_profile(torch, gus.mutate,
+                                 [next(stream) for _ in range(4)],
+                                 "multimodal mutation")}
+    print("[multimodal] " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("profile", "host_top")}))
+    if not same_rate > 0.7:
+        raise AssertionError(f"multi-modal same-cluster rate {same_rate} "
+                             f"<= 0.7")
+    # the products index's rescore of a 16-id RPC (K = k_max) and its
+    # pair scoring (16 x r_max pairs), for phase 5
+    shapes = dict(mm_rescore=(16, cfg.scann.nprobe * gus.index.slab,
+                              cfg.scann.reorder, gus.index.capacity,
+                              gus.embedder.k_max, cfg.scann_nn + 1),
+                  mm_spec=data.spec, mm_pair=(16 * r_max, r_max),
+                  mm=(16, r_max, gus.embedder.k_max))
+    del gus
+
+    t0 = time.perf_counter()
+    flag = torch_time_to_flag.run(device=dev)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    recording.close()
+    out["time_to_flag"] = dict(
+        ratio=flag["ratio"], rescore_p50_ms=flag["rescore_p50_ms"],
+        scorer_final_loss=flag["scorer_final_loss"],
+        wall_s=time.perf_counter() - t0,
+        **{f"{m}_flagged": f"{flag[m]['flagged']}/{flag[m]['total']}"
+           for m in ("dense", "multimodal")},
+        **{f"{m}_mean_mutations": flag[m]["mean_mutations"]
+           for m in ("dense", "multimodal")})
+    out["launches"] = counts
+    print("[multimodal] time-to-flag " + json.dumps(out["time_to_flag"])
+          + "; launches " + json.dumps(counts))
+    _require_launched(counts, ("sparse_dot_batched", "pair_score",
+                               "fused_query", "sparse_rescore_topk",
+                               "sparse_dot", "topk_select"),
+                      "the multi-modal path", forbidden=("scorer_mlp",))
+    if not flag["ratio"] >= torch_time_to_flag.RATIO_GATE:
+        raise AssertionError(f"time-to-flag ratio {flag['ratio']} < "
+                             f"{torch_time_to_flag.RATIO_GATE}")
+    return out, dict(shapes, mm_calls=sorted(two_stage, key=lambda c: c[1:]),
+                     brute_calls=sorted(brute))
+
+
 SOURCES = {  # kernel -> (CUDA source, TPU kernel it replaces, path)
     "fused_query": ("src/repro_torch/kernels/csrc/fused_query.cu",
                     "src/repro/kernels/fused_query.py:172", "main"),
@@ -876,7 +1210,7 @@ SOURCES = {  # kernel -> (CUDA source, TPU kernel it replaces, path)
                             "src/repro/kernels/sparse_dot.py:39", "main"),
     "sparse_dot_batched": ("src/repro_torch/kernels/csrc/sparse_dot.cu",
                            "src/repro/kernels/sparse_dot.py:39",
-                           "kernel check"),
+                           "multimodal"),
     "sparse_dot": ("src/repro_torch/kernels/csrc/sparse_dot.cu",
                    "src/repro/kernels/sparse_dot.py:68", "main"),
     "pair_score": ("src/repro_torch/kernels/csrc/scorer_mlp.cu",
@@ -916,6 +1250,8 @@ def main() -> int:
     configs = run_index_configs(torch, ctx)
     graph, graph_shapes = run_graph_path(torch, dev, ctx)
     del ctx
+    multimodal, mm_shapes = run_multimodal_path(torch, OGB_ARXIV_NODES, dev)
+    shapes.update(mm_shapes)
     shapes.update(topk_merge=graph_shapes["merge"],
                   topk_read=graph_shapes["read"],
                   rescore_graph=graph_shapes["rescore"],
@@ -924,7 +1260,8 @@ def main() -> int:
 
     path_counts = {"main": main_path["launches"],
                    "configs": configs["launches"],
-                   "graph": graph["launches"]}
+                   "graph": graph["launches"],
+                   "multimodal": multimodal["launches"]}
     kernels = []
     for name, (source, replaces, path) in SOURCES.items():
         # topk_select's line carries the merge shape, the larger of its two
@@ -935,12 +1272,15 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches, launches_in=path,
             launches_graph=path_counts["graph"][name],
+            launches_multimodal=path_counts["multimodal"][name],
             max_abs_err=rep["max_abs_err"], ms=rep["ms"],
             device_ms=rep["device_ms"], plain_ms=rep["plain_ms"],
             bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
             library_ms=rep.get("library_ms"), shape=rep["shape"]))
     for extra in ("topk_select read", "fused_query B=256",
-                  "sparse_rescore_topk graph", "pair_score graph"):
+                  "sparse_rescore_topk graph", "pair_score graph",
+                  "sparse_dot_batched rescore shape",
+                  "sparse_rescore_topk multimodal", "pair_score multimodal"):
         print(f"[kernels] {extra}: " + json.dumps(report[extra]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

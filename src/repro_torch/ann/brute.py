@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.core.types import PAD_INDEX, SparseBatch
 from repro_torch.kernels import ops
-from repro_torch.kernels.topk_select import chunk_plan, topk_select
+from repro_torch.kernels.topk_select import topk_select
 from repro_torch.utils.device import resolve
 
 
@@ -121,13 +121,8 @@ class BruteIndex:
 
     def search(self, emb: SparseBatch, k: int):
         """Top-k by ascending distance. Returns (ids [B,k], dists [B,k]);
-        missing neighbors padded with id=-1, dist=+inf. On the card a k
-        the split top-k does not take raises ``ValueError``
-        (``topk_select.chunk_plan``: k <= 4,096 once the capacity passes
-        8,192)."""
+        missing neighbors padded with id=-1, dist=+inf."""
         k_eff = min(k, self.capacity)
-        if self.device.type == "cuda":
-            chunk_plan(self.capacity, k_eff)       # raises, naming the limit
         scores = ops.sparse_dot(emb.indices, emb.values, self.db_idx,
                                 self.db_val, valid=self.valid)
         top, slots = topk_select(scores, k_eff, signed_zeros=True)

@@ -22,7 +22,9 @@ module sees only numpy arrays and plain numbers:
 ``graph_state`` takes the reference's ``DynamicGraphStore.snapshot_state()``
 (numpy arrays, id maps, and its ``GraphConfig``, read by field name) and
 builds the port's store at that state, so a test can continue one stream
-from one adjacency in both packages.
+from one adjacency in both packages. ``multimodal_state`` does the same
+for the reference's ``MultiModalStore.snapshot_state()``: it gives the
+state the port's ``MultiModalStore.restore_state`` takes.
 """
 from __future__ import annotations
 
@@ -62,12 +64,37 @@ def scorer_params(arrays: dict, device=None) -> dict:
     return {k: _t(v, np.float32, device) for k, v in arrays.items()}
 
 
+def multimodal_state(state: dict, device=None) -> dict:
+    """The reference's ``MultiModalStore.snapshot_state()`` (numpy arrays,
+    its routing tables as ``(sorted_ids, weights, default_weight)`` and
+    ``sorted_ids``) as the port's ``restore_state`` takes it: private
+    copies of the host arrays and the routing tables built on
+    ``device``."""
+    ids, weights, default = state["idf"]
+    return dict(
+        state,
+        counts={"ids": np.array(state["counts"]["ids"], np.uint32),
+                "counts": np.array(state["counts"]["counts"], np.int64),
+                "n_points": int(state["counts"]["n_points"])},
+        postings={int(b): [int(p) for p in v]
+                  for b, v in state["postings"].items()},
+        ids=np.array(state["ids"], np.int64),
+        point_buckets=[np.array(r, np.uint32) for r in state["point_buckets"]],
+        emb_idx=[np.array(r, np.uint32) for r in state["emb_idx"]],
+        emb_val=[np.array(r, np.float32) for r in state["emb_val"]],
+        sketch=[np.array(r, np.float32) for r in state["sketch"]],
+        idf=idf_table({"sorted_ids": ids, "weights": weights,
+                       "default_weight": default}, device),
+        filter=filter_table({"sorted_ids": state["filter"]}, device))
+
+
 def load_bootstrapped(gus, state: dict, ids: np.ndarray, features: dict) -> None:
     """``DynamicGUS.bootstrap`` with the reference's trained state: install
     its hyperplanes, tables and scorer, create the index from its trained
     structures at its layout, then load the corpus through the mutation
     path (as the reference's ``build`` does after training) and seed the
-    maintained graph, if one is configured, as ``bootstrap`` does."""
+    multi-modal plane and the maintained graph, where configured, as
+    ``bootstrap`` does."""
     dev = gus.device
     gus.embedder = gus.embedder.reload(idf=idf_table(state["idf"], dev),
                                        filter_table=filter_table(
@@ -83,8 +110,12 @@ def load_bootstrapped(gus, state: dict, ids: np.ndarray, features: dict) -> None
     else:
         gus.index = BruteIndex(k_dims, device=dev)
     gus.store.clear()
-    gus.index.upsert(np.asarray(ids), gus.embedder(features))
+    emb = gus.embedder(features)
+    gus.index.upsert(np.asarray(ids), emb)
     gus.store.put(ids, features)
+    if gus.multimodal is not None:
+        bucket_ids, valid = gus.embedder.buckets(features)
+        gus.multimodal.rebuild(np.asarray(ids), emb, bucket_ids, valid)
     gus.seed_graph(ids)
 
 

@@ -5,13 +5,14 @@ maintained graph (``GusConfig.graph``): every mutation RPC updates the
 graph, and ``neighbors_of_ids`` at k <= the graph's k serves straight
 from its rows.
 
-Backends ``"scann"`` and the exact ``"brute"``; the multi-modal plane,
-the sharded backend and the serving plane's pipeline and maintenance
-worker are not ported. The neighborhood RPC's pair scores go through the
-scorer kernel on the card. Per-RPC wall-clock timers mirror the paper's
-Figs. 9-10; results are copied to the host inside the timed block, so
-each sample covers the device work; graph maintenance is billed to
-``graph_timer``.
+Backends ``"scann"`` and the exact ``"brute"``, and the multi-modal
+scoring plane (``GusConfig.multimodal``: ``repro_torch.multimodal``); the
+sharded backend, the serving plane's pipeline and maintenance worker, and
+the engine's periodic reload, snapshot and restore are not ported. The
+neighborhood RPC's pair scores go through the scorer kernel on the card.
+Per-RPC wall-clock timers mirror the paper's Figs. 9-10; results are
+copied to the host inside the timed block, so each sample covers the
+device work; graph maintenance is billed to ``graph_timer``.
 """
 from __future__ import annotations
 
@@ -30,6 +31,8 @@ from repro_torch.core.scorer import score_pairs
 from repro_torch.core.types import (FeatureSpec, MutationBatch, NeighborResult,
                                     MUTATION_DELETE)
 from repro_torch.graph.store import DynamicGraphStore, GraphConfig
+from repro_torch.multimodal import (MultiModalConfig, MultiModalStore,
+                                    two_stage_neighbors)
 from repro_torch.utils.device import resolve
 from repro_torch.utils.timing import Timer
 
@@ -43,6 +46,8 @@ class StagedMutation:
     feats: dict | None                      # store-normalized features
     emb: object | None                      # SparseBatch embeddings
     index_staged: object | None             # backend encode artifacts
+    buckets: tuple | None = None            # (bucket_ids, valid) np arrays,
+                                            # staged when multimodal is on
     pending: object | None = None           # in-flight device handle
 
 
@@ -56,6 +61,9 @@ class GusConfig:
     # maintained-graph layer (repro_torch.graph): None disables maintenance;
     # its `maintenance.staleness_bound > 0` serves published versions
     graph: GraphConfig | None = None
+    # multi-modal scoring plane (repro_torch.multimodal): None keeps the
+    # dense embed -> search -> score path bitwise unchanged
+    multimodal: MultiModalConfig | None = None
 
 
 def make_index(k_dims: int, cfg: GusConfig, device):
@@ -123,6 +131,9 @@ class DynamicGUS:
         self.index = make_index(self.embedder.k_max, cfg, self.device)
         self.graph = (DynamicGraphStore(cfg.graph, self.device)
                       if cfg.graph else None)
+        self.multimodal = (MultiModalStore(cfg.multimodal,
+                                           device=self.device)
+                           if cfg.multimodal is not None else None)
         # applied mutation batches: published graph versions are stamped
         # against this count
         self.seq_applied = 0
@@ -135,9 +146,10 @@ class DynamicGUS:
     def bootstrap(self, ids: np.ndarray, features: Mapping[str, np.ndarray]
                   ) -> None:
         """Offline preprocessing: compute IDF/filter tables from the initial
-        corpus, (re)build the index, and load all points. The maintained
-        graph (if configured) is seeded from full-corpus neighborhoods in
-        chunks of 256 ids, then its repair queue is drained."""
+        corpus, (re)build the index, and load all points. The multi-modal
+        plane (if configured) is seeded next, then the maintained graph
+        (if configured) from full-corpus neighborhoods in chunks of 256
+        ids, then its repair queue is drained."""
         bucket_ids, valid = self.embedder.buckets(features)
         bucket_ids = bucket_ids.cpu().numpy()
         valid = valid.cpu().numpy()
@@ -147,8 +159,12 @@ class DynamicGUS:
                                         self.cfg.idf_size, self.device),
             filter_table=idf_mod.build_filter_table(
                 bucket_ids, valid, self.cfg.filter_percent, self.device))
-        self.index.build(np.asarray(ids), self.embedder(features))
+        emb = self.embedder(features)
+        self.index.build(np.asarray(ids), emb)
         self.store.put(ids, features)
+        if self.multimodal is not None:
+            # before the graph: its candidate stage feeds graph seeding
+            self.multimodal.rebuild(ids, emb, bucket_ids, valid)
         self.seed_graph(ids)
 
     def seed_graph(self, ids: np.ndarray) -> None:
@@ -180,6 +196,7 @@ class DynamicGUS:
             self.apply_mutation(staged)
             self.finish_mutation(staged)
         self.seq_applied += 1
+        self.maybe_reload_multimodal()
         if self.graph is not None:
             with self.graph_timer:
                 self.graph_apply(staged)
@@ -204,8 +221,14 @@ class DynamicGUS:
                      for k, v in batch.features.items()}
             emb = self.embedder(feats)
             index_staged = self.index.encode_upsert(up_ids, emb)
+        buckets = None
+        if self.multimodal is not None and feats is not None:
+            # a pure function of the features: staging keeps encode pure
+            b_ids, b_valid = self.embedder.buckets(feats)
+            buckets = (b_ids.cpu().numpy(), b_valid.cpu().numpy())
         return StagedMutation(n=int(ids.size), dels=dels, up_ids=up_ids,
-                              feats=feats, emb=emb, index_staged=index_staged)
+                              feats=feats, emb=emb, index_staged=index_staged,
+                              buckets=buckets)
 
     def apply_mutation(self, staged: StagedMutation) -> None:
         """Stage B: tombstone deletes, write the staged upserts, update the
@@ -213,10 +236,15 @@ class DynamicGUS:
         if staged.dels is not None:
             self.index.delete(staged.dels)
             self.store.drop(staged.dels)
+            if self.multimodal is not None:
+                self.multimodal.delete(staged.dels)
         if staged.up_ids is not None:
             staged.pending = self.index.begin_upsert(
                 staged.up_ids, staged.emb, staged.index_staged)
             self.store.put(staged.up_ids, staged.feats)
+            if self.multimodal is not None:
+                self.multimodal.upsert(staged.up_ids, staged.emb,
+                                       *staged.buckets)
 
     def finish_mutation(self, staged: StagedMutation) -> None:
         """Barrier: after this, the batch is query-visible."""
@@ -259,8 +287,23 @@ class DynamicGUS:
         with self.query_timer:
             return self._neighbors_impl(features, k, exclude_ids)
 
+    def maybe_reload_multimodal(self) -> bool:
+        """Reload the multi-modal routing tables when the configured
+        cadence divides the applied-batch sequence (called right after
+        ``seq_applied`` is bumped)."""
+        mm = self.multimodal
+        if mm is None or mm.cfg.reload_every <= 0:
+            return False
+        if self.seq_applied > 0 and \
+                self.seq_applied % mm.cfg.reload_every == 0:
+            mm.reload()
+            return True
+        return False
+
     def _neighbors_impl(self, features, k, exclude_ids) -> NeighborResult:
         k = k or self.cfg.scann_nn
+        if self.multimodal is not None:
+            return two_stage_neighbors(self, features, k, exclude_ids)
         emb = self.embedder(features)
         ids, dists = self.index.search(emb, k + (exclude_ids is not None))
         if exclude_ids is not None:

@@ -1,10 +1,12 @@
 """IDF weighting and popular-bucket filtering (port of ``repro/core/idf.py``,
 paper §4.2, §4.3).
 
-Both tables are built offline on the host in numpy (the same code as the
+Both tables are built on the host in numpy (the same code as the
 reference, so the tables are bitwise equal given the same bucket counts)
 and kept on the device as sorted int64 arrays, consulted with
-``torch.searchsorted`` when embeddings are generated.
+``torch.searchsorted`` when embeddings are generated. ``IdfCounts`` keeps
+the bucket counts incrementally from the mutation stream, for the
+multi-modal store's routing tables.
 """
 from __future__ import annotations
 
@@ -111,3 +113,68 @@ def build_filter_table(bucket_ids: np.ndarray, valid: np.ndarray,
         return FilterTable.disabled(device)
     uniq, counts = bucket_counts(bucket_ids, valid)
     return filter_table_from_counts(uniq, counts, percent, device)
+
+
+class IdfCounts:
+    """Incremental corpus bucket statistics maintained from the mutation
+    stream (the online counterpart of §4.3's offline preprocessing; port
+    of ``repro/core/idf.py::IdfCounts``).
+
+    Tracks, on the host, the occurrence count of every valid bucket cell
+    (the statistic of ``bucket_counts`` over the full corpus, duplicates
+    within a row included) and the number of live points. ``idf_table`` /
+    ``filter_table`` go through ``idf_table_from_counts`` /
+    ``filter_table_from_counts``, so they are bitwise equal to a
+    from-scratch ``build_idf_table`` / ``build_filter_table`` over the
+    same corpus.
+    """
+
+    def __init__(self) -> None:
+        self._counts: dict[int, int] = {}
+        self.n_points = 0
+
+    def add(self, bucket_ids: np.ndarray, valid: np.ndarray) -> None:
+        """Count one batch of points' bucket rows ([B, k] + valid mask)."""
+        bucket_ids = np.asarray(bucket_ids)
+        counts = self._counts
+        for b in bucket_ids[np.asarray(valid)].tolist():
+            counts[b] = counts.get(b, 0) + 1
+        self.n_points += int(bucket_ids.shape[0])
+
+    def remove(self, bucket_ids: np.ndarray, valid: np.ndarray) -> None:
+        """Undo ``add`` for points leaving the corpus (delete / re-update)."""
+        bucket_ids = np.asarray(bucket_ids)
+        counts = self._counts
+        for b in bucket_ids[np.asarray(valid)].tolist():
+            c = counts.get(b, 0) - 1
+            if c <= 0:
+                counts.pop(b, None)
+            else:
+                counts[b] = c
+        self.n_points -= int(bucket_ids.shape[0])
+
+    def arrays(self) -> tuple:
+        """(uniq ascending uint32, counts int64): ``bucket_counts``' shape."""
+        uniq = np.array(sorted(self._counts), np.uint32)
+        counts = np.array([self._counts[int(b)] for b in uniq], np.int64)
+        return uniq, counts
+
+    def idf_table(self, size: int, device=None) -> IdfTable:
+        uniq, counts = self.arrays()
+        return idf_table_from_counts(uniq, counts, self.n_points, size,
+                                     device)
+
+    def filter_table(self, percent: float, device=None) -> FilterTable:
+        uniq, counts = self.arrays()
+        return filter_table_from_counts(uniq, counts, percent, device)
+
+    def snapshot_state(self) -> dict:
+        uniq, counts = self.arrays()
+        return {"ids": uniq, "counts": counts, "n_points": self.n_points}
+
+    def restore_state(self, state: dict) -> None:
+        ids = np.asarray(state["ids"]).tolist()
+        counts = np.asarray(state["counts"]).tolist()
+        self._counts = dict(zip((int(b) for b in ids),
+                                (int(c) for c in counts)))
+        self.n_points = int(state["n_points"])

@@ -215,6 +215,24 @@ def topk_split_cases(chunk: int) -> list:
             ("ragged zeros", ragged, k)]
 
 
+def topk_long_k_cases(rng) -> list:
+    """(name, scores, k) past k = chunk / 2 on rows of more than one chunk,
+    where the chunks' sorted runs are merged pairwise: B=4, N=32,768,
+    k=4,097 (4 chunks of 8,192, 2 merge levels), B=2, N=131,072,
+    k=16,384 (16 chunks, 4 levels), a ragged odd count (5 chunks, the
+    last run carried over a level) and k = N. Scores come from few values
+    with +0.0 and -0.0 inside every cut, so the two orders differ, and
+    -inf holes; the last row is all -inf past its first quarter."""
+    vals = np.asarray([0.5, 0.0, -0.0, -0.25, -np.inf], np.float32)
+    out = []
+    for b, n, k in ((4, 32768, 4097), (2, 131072, 16384), (3, 40000, 5000),
+                    (2, 20000, 20000)):
+        scores = rng.choice(vals, (b, n), p=[0.05, 0.3, 0.3, 0.15, 0.2])
+        scores[-1, n // 4:] = -np.inf
+        out.append((f"B={b} N={n} k={k}", scores, k))
+    return out
+
+
 def fused_query_split_cases(rng, chunk: int) -> list:
     """(name, inputs, k) that cross the fused shortlist's split into chunks
     of ``chunk`` candidates: a ragged last chunk, a row shorter than one

@@ -30,7 +30,7 @@
 //
 // Design: the candidates of a row are split over blocks, so B=16 queries
 // fill the card. One call is two kernel launches (more only when a row
-// has over 32 chunks' survivors):
+// has over 32 chunks' survivors, or when 2k > S):
 //   * pass 1, one block per (chunk of S candidates, query row); S = 4,096
 //     is one probed slab, so the main path's B=16 x 8 slabs give 128
 //     blocks. The row's table is staged in shared memory (8 KB at M=8,
@@ -45,6 +45,13 @@
 //     comparisons spread over the block in place of one thread's scan.
 //   A row of one chunk takes pass 1 only. The dedup waits for the final
 //   order, so no chunk checks duplicates.
+//   When 2k > S on a row of more than one chunk (k > 4,096, or k > 2,048
+//   past 8,192 candidates), one merge block cannot hold the survivors:
+//   the chunks' sorted runs are merged pairwise in device memory
+//   (select.cuh merge_runs), the last merge writes the row's values and
+//   indices, and dedup_kernel then checks entry r against the entries
+//   j < r, a tile of 256 entries a block with the earlier ids staged in
+//   shared memory 256 at a time.
 #include "select.cuh"
 
 #include <algorithm>
@@ -63,6 +70,15 @@ struct FusedFinal {
   int* idxs;
   int N;
   int k;
+
+  // One key at a time (the pairwise merge's last level); dedup_kernel
+  // follows.
+  __device__ int prepare(int, unsigned*) const { return 0; }
+
+  __device__ void emit(int row, int r, uint64_t key, int) const {
+    vals[static_cast<size_t>(row) * k + r] = sel::key_value(key);
+    idxs[static_cast<size_t>(row) * k + r] = sel::key_index(key);
+  }
 
   __device__ void operator()(int row, const sel::Smem& s) const {
     int* sel_id = reinterpret_cast<int*>(s.keys);
@@ -88,6 +104,46 @@ struct FusedFinal {
     }
   }
 };
+
+// The dedup-after-cut of rows the pairwise merge wrote: block (tile, row)
+// takes entries [tile * kThreads, +kThreads) and checks each against the
+// row's earlier entries, whose ids and valid flags are staged in shared
+// memory a tile at a time.
+__global__ void __launch_bounds__(kThreads)
+dedup_kernel(const int* __restrict__ ids, const uint8_t* __restrict__ valid,
+             const int* __restrict__ idxs, float* __restrict__ vals, int N,
+             int k, int tiles) {
+  __shared__ int sid[kThreads];
+  __shared__ bool sok[kThreads];
+  const int tile = blockIdx.x % tiles;
+  const int row = blockIdx.x / tiles;
+  const int r = tile * kThreads + threadIdx.x;
+  const size_t base = static_cast<size_t>(row) * N;
+  const int* ir = idxs + static_cast<size_t>(row) * k;
+  int id = 0;
+  bool ok = false;
+  if (r < k) {
+    id = ids[base + ir[r]];
+    ok = valid[base + ir[r]] != 0;
+  }
+  bool dup = false;
+  const int end = min(k, (tile + 1) * kThreads);
+  for (int j0 = 0; j0 < end; j0 += kThreads) {
+    const int j = j0 + threadIdx.x;
+    if (j < end) {
+      sid[threadIdx.x] = ids[base + ir[j]];
+      sok[threadIdx.x] = valid[base + ir[j]] != 0;
+    }
+    __syncthreads();
+    if (ok && !dup) {
+      const int n = min(kThreads, r - j0);       // the entries j < r
+      for (int t = 0; t < n; ++t)
+        if (sok[t] && sid[t] == id) { dup = true; break; }
+    }
+    __syncthreads();
+  }
+  if (dup) vals[static_cast<size_t>(row) * k + r] = -INFINITY;
+}
 
 template <bool kInt8>
 __global__ void __launch_bounds__(kThreads)
@@ -158,7 +214,6 @@ int launch(const void* lut, const void* scale, const void* codes,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return sel::on_device(device, [&]() -> cudaError_t {
     const int chunks = (N + S - 1) / S;
-    if (chunks > 1 && 2 * k > S) return cudaErrorInvalidValue;
     const size_t level = static_cast<size_t>(B) * chunks * std::min(k, S);
     if (chunks > 1 && static_cast<size_t>(scratch_words) < 2 * level)
       return cudaErrorInvalidValue;
@@ -183,7 +238,16 @@ int launch(const void* lut, const void* scale, const void* codes,
         N, M, C, chunks, keys, n_out, k, S, fin);
     err = cudaGetLastError();
     if (err != cudaSuccess || chunks == 1) return err;
-    return sel::merge_levels(keys, other, B, n_out, k, S, fin, device, st);
+    if (2 * k <= S)
+      return sel::merge_levels(keys, other, B, n_out, k, S, fin, device, st);
+    err = sel::merge_runs(keys, other, B, N, k, S, fin, st);
+    if (err != cudaSuccess) return err;
+    const int tiles = (k + kThreads - 1) / kThreads;
+    dedup_kernel<<<tiles * B, kThreads, 0, st>>>(
+        static_cast<const int*>(ids), static_cast<const uint8_t*>(valid),
+        static_cast<const int*>(idxs), static_cast<float*>(vals), N, k,
+        tiles);
+    return cudaGetLastError();
   });
 }
 

@@ -15,7 +15,16 @@
 // again, while the row is longer than one chunk, and the block that holds
 // a whole row writes the answer. This is exact: the row's top-k lies in
 // the union of the chunks' top-k, because the chunks partition the row.
-// With S >= 2k every level at least halves the row.
+// With S >= 2k every level at least halves the row. Above that (k > S/2
+// on a row of more than one chunk) a level of chunks would not shrink the
+// row, so the first level's sorted runs are merged pairwise in device
+// memory instead (merge_runs): each merge keeps the top min(k, |a| + |b|)
+// keys of its two runs, and the levels repeat until one run is left,
+// ceil(log2(chunks)) launches. A merge-path split gives every block an
+// equal share of one output run: two binary searches find where the
+// block's first and last outputs cut the two runs, the block stages that
+// stretch of each in shared memory, and each thread finds its own start
+// the same way and merges a few outputs sequentially.
 //
 // In a block: a radix select finds the threshold T with exactly m keys
 // >= T (8-bit digits from the top, a shared-memory histogram per digit,
@@ -252,6 +261,144 @@ cudaError_t merge_levels(uint64_t* keys, uint64_t* other, int B, int n,
     other = t;
     n = n_out;
   }
+}
+
+// ---- The pairwise merge in device memory (2k > S).
+
+constexpr int kMergeItems = 4;                      // outputs a thread
+constexpr int kMergeTile = kThreads * kMergeItems;  // outputs a block
+
+// One level's sorted runs, laid out alike in every row: `count` runs at a
+// stride of `len`, all `len` long but the last (`last`).
+struct Runs {
+  int count;
+  int len;
+  int last;
+
+  __host__ __device__ int row_len() const { return (count - 1) * len + last; }
+  __host__ __device__ int length(int r) const {
+    return r == count - 1 ? last : len;
+  }
+  // The runs after one pairwise merge that keeps the top k of each pair
+  // (a lone last run is carried over as it is).
+  __host__ Runs merged(int k) const {
+    Runs o;
+    o.count = (count + 1) / 2;
+    o.last = count % 2 ? last : (k < len + last ? k : len + last);
+    o.len = o.count == 1 ? o.last : (k < 2 * len ? k : 2 * len);
+    return o;
+  }
+};
+
+// How many of the first d keys of the merge of a (na keys) and b (nb),
+// both descending and with no key in both, come from a.
+__device__ __forceinline__ int merge_split(const uint64_t* a, int na,
+                                           const uint64_t* b, int nb,
+                                           int d) {
+  int lo = max(0, d - nb), hi = min(d, na);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] > b[d - 1 - mid]) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// Block (tile, pair, row): outputs [tile * kMergeTile, +kMergeTile) of the
+// merge of runs 2 pair and 2 pair + 1 of `in` (laid out as `ri`), written
+// to `out` (laid out as `ro`) or, on the last level, handed to the
+// caller's final step one key at a time: fin.emit(row, position, key,
+// ctx), ctx = fin.prepare(row, cell) (called by the whole block).
+template <class Final>
+__global__ void __launch_bounds__(kThreads)
+merge_runs_kernel(const uint64_t* __restrict__ in, Runs ri,
+                  uint64_t* __restrict__ out, Runs ro, int tiles, bool last,
+                  Final fin) {
+  __shared__ uint64_t buf[kMergeTile];
+  __shared__ int cut[2];
+  __shared__ unsigned cell;
+  const int tile = blockIdx.x % tiles;
+  const int pair = (blockIdx.x / tiles) % ro.count;
+  const int row = blockIdx.x / tiles / ro.count;
+  const int n_out = ro.length(pair);
+  const int d0 = tile * kMergeTile;
+  if (d0 >= n_out) return;                       // the whole block
+  const int d1 = min(d0 + kMergeTile, n_out);
+  const uint64_t* a = in + static_cast<size_t>(row) * ri.row_len()
+                      + static_cast<size_t>(2 * pair) * ri.len;
+  const uint64_t* b = a + ri.len;
+  const int na = ri.length(2 * pair);
+  const int nb = 2 * pair + 1 < ri.count ? ri.length(2 * pair + 1) : 0;
+  if (threadIdx.x < 2)
+    cut[threadIdx.x] = merge_split(a, na, b, nb, threadIdx.x ? d1 : d0);
+  __syncthreads();
+  const int i0 = cut[0], sa = cut[1] - cut[0];
+  const int j0 = d0 - i0, sb = (d1 - d0) - sa;
+  for (int t = threadIdx.x; t < sa; t += blockDim.x) buf[t] = a[i0 + t];
+  for (int t = threadIdx.x; t < sb; t += blockDim.x) buf[sa + t] = b[j0 + t];
+  __syncthreads();
+  const int ctx = last ? fin.prepare(row, &cell) : 0;
+  const int lo = threadIdx.x * kMergeItems;
+  const int hi = min(lo + kMergeItems, d1 - d0);
+  if (lo >= hi) return;
+  int i = merge_split(buf, sa, buf + sa, sb, lo);
+  int j = lo - i;
+  uint64_t* dst = out + static_cast<size_t>(row) * ro.row_len()
+                  + static_cast<size_t>(pair) * ro.len + d0;
+  for (int e = lo; e < hi; ++e) {
+    const uint64_t key = (j >= sb || (i < sa && buf[i] > buf[sa + j]))
+                             ? buf[i++] : buf[sa + j++];
+    if (last) fin.emit(row, d0 + e, key, ctx);
+    else dst[e] = key;
+  }
+}
+
+// The levels after a first level that left each row's chunks' sorted runs
+// in `runs` (rows of level_out(N, k, S)), when 2k > S: pairwise merges,
+// ping-ponging with `spare` (as large), the last one through `fin`.
+template <class Final>
+cudaError_t merge_runs(uint64_t* runs, uint64_t* spare, int B, int N, int k,
+                       int S, Final fin, cudaStream_t stream) {
+  const int chunks = (N + S - 1) / S;
+  const int m0 = k < S ? k : S;
+  const int tail = N - (chunks - 1) * S;
+  Runs r{chunks, m0, k < tail ? k : tail};
+  while (r.count > 1) {
+    const Runs o = r.merged(k);
+    const int tiles = (o.len + kMergeTile - 1) / kMergeTile;
+    merge_runs_kernel<Final><<<tiles * o.count * B, kThreads, 0, stream>>>(
+        runs, r, spare, o, tiles, o.count == 1, fin);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    uint64_t* t = runs;
+    runs = spare;
+    spare = t;
+    r = o;
+  }
+  return cudaSuccess;
+}
+
+// The top k of rows of n keys already made (`keys`, B x n; reused as
+// scratch): a level of chunks of S, then the halving levels (2k <= S) or
+// the pairwise merge. `other` holds B * level_out(n, k, S) keys. `fin`
+// takes both final forms: a block's sorted survivors (operator()) and one
+// key at a time (prepare / emit).
+template <class Final>
+cudaError_t select_keys(uint64_t* keys, uint64_t* other, int B, int n, int k,
+                        int S, Final fin, int device, cudaStream_t stream) {
+  if (n <= S || 2 * k <= S)
+    return merge_levels(keys, other, B, n, k, S, fin, device, stream);
+  static int granted[kMaxDevices];
+  const int chunks = (n + S - 1) / S;
+  const size_t bytes = smem_bytes(S, pow2_ceil(k < S ? k : S));
+  cudaError_t err = allow_smem(keys_level_kernel<Final>, bytes, device,
+                               granted);
+  if (err != cudaSuccess) return err;
+  keys_level_kernel<Final><<<chunks * B, kThreads, bytes, stream>>>(
+      keys, n, chunks, other, level_out(n, k, S), k, S, fin);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return merge_runs(other, keys, B, n, k, S, fin, stream);
 }
 
 // Runs `body` with `device` current, then restores the caller's device.

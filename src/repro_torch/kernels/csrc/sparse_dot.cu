@@ -77,10 +77,17 @@
 // ties go to the lowest shortlist position and +0.0 ranks above -0.0, as
 // lax.top_k orders). A bitonic sort of the pow2_ceil(R) keys in shared
 // memory orders them, and the first k' become (slot, -score). No [B, R,
-// Kd] copy of the slab rows exists. R goes up to 8,192, the longest
-// shortlist the top-k kernels give (a row of two chunks taken whole):
-// 64 KB of keys and 32 KB of slots, above the 48 KB default, so the
-// launch opts in to the larger shared memory when R needs it.
+// Kd] copy of the slab rows exists. R goes up to 8,192 this way (a row
+// of two chunks of the top-k kernels taken whole): 64 KB of keys and 32
+// KB of slots, above the 48 KB default, so the launch opts in to the
+// larger shared memory when R needs it.
+//
+// Longer shortlists (R > 8,192) take rescore_keys_kernel instead: a block
+// per (tile of 128 entries, query row) scores its tile the same way into
+// a [B, R] scratch of the same keys and a [B, R] scratch of slots, and
+// the split top-k of select.cuh (select_keys: chunks, then the halving
+// levels or the pairwise merge) selects the row's top k' from the keys,
+// RescoreFinal writing (slot, -score) as the one-block kernel does.
 #include "select.cuh"
 
 #include <cmath>
@@ -90,7 +97,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRescoreThreads = 128;    // also the shortlist entries a tile
-constexpr int kMaxReorder = 8192;      // sparse_dot.py MAX_REORDER
+constexpr int kMaxReorder = 8192;      // sparse_dot.py MAX_REORDER (one block)
 constexpr int kTileRows = 128;         // shared form: db rows (threads) a block
 constexpr int kQueryChunk = 32;        // shared form: query rows a table holds
 
@@ -307,6 +314,86 @@ rescore_topk_kernel(const int* __restrict__ q_idx,
   }
 }
 
+// The long-shortlist form: block (tile, row) scores shortlist entries
+// [tile * kRescoreThreads, +kRescoreThreads) of row b into keys [B, R] and
+// their slots into slots [B, R], as rescore_topk_kernel scores a tile.
+__global__ void __launch_bounds__(kRescoreThreads)
+rescore_keys_kernel(const int* __restrict__ q_idx,
+                    const float* __restrict__ q_val,
+                    const int* __restrict__ flat_slots, int N,
+                    const int* __restrict__ short_pos,
+                    const float* __restrict__ short_scores, int R,
+                    const int* __restrict__ sp_idx,
+                    const float* __restrict__ sp_val, int Kq, int Kd,
+                    uint64_t* __restrict__ keys, int* __restrict__ slots) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* slot_s = reinterpret_cast<int*>(smem);       // kRescoreThreads
+  int* qi_s = slot_s + kRescoreThreads;
+  int* ti_s = qi_s + Kq;                            // tile: slab indices
+  float* qv_s = reinterpret_cast<float*>(ti_s + kRescoreThreads * Kd);
+  float* tv_s = qv_s + Kq;                          // tile: slab values
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int t0 = blockIdx.x * kRescoreThreads;
+  const int n = min(kRescoreThreads, R - t0);
+  for (int i = tid; i < Kq; i += kRescoreThreads) {
+    qi_s[i] = q_idx[2 * ((size_t)b * Kq + i)];  // low word of the int64
+    qv_s[i] = q_val[(size_t)b * Kq + i];
+  }
+  const size_t sb = (size_t)b * R + t0;
+  if (tid < n) {
+    // -inf = invalid or a duplicate SOAR copy: out of the rescore
+    slot_s[tid] = finite(short_scores[sb + tid])
+                      ? flat_slots[(size_t)b * N + short_pos[sb + tid]] : -1;
+    slots[sb + tid] = slot_s[tid];
+  }
+  __syncthreads();
+  for (int f = tid; f < n * Kd; f += kRescoreThreads) {
+    const int e = f / Kd;
+    const int slot = slot_s[e];
+    int di = -1;
+    float dv = 0.0f;
+    if (slot >= 0) {
+      const size_t at = (size_t)slot * Kd + (f - e * Kd);
+      di = sp_idx[2 * at];
+      dv = sp_val[at];
+    }
+    ti_s[f] = di;
+    tv_s[f] = dv;
+  }
+  __syncthreads();
+  if (tid < n) {
+    const float acc = row_dot(qi_s, qv_s, Kq, ti_s + tid * Kd,
+                              tv_s + tid * Kd, 1, Kd);
+    keys[sb + tid] = sel::make_key(slot_s[tid] >= 0 ? acc : -INFINITY,
+                                   t0 + tid, /*tie_zeros=*/false);
+  }
+}
+
+// The long form's last step: a selected key becomes (slot, -score), slot
+// -1 where the score is -inf, as in rescore_topk_kernel.
+struct RescoreFinal {
+  const int* slots;        // [B, R]
+  int R;
+  int k_out;
+  int* final_slots;
+  float* dists;
+
+  __device__ int prepare(int, unsigned*) const { return 0; }
+
+  __device__ void emit(int row, int p, uint64_t key, int) const {
+    const float v = sel::key_value(key);
+    final_slots[(size_t)row * k_out + p] =
+        finite(v) ? slots[(size_t)row * R + sel::key_index(key)] : -1;
+    dists[(size_t)row * k_out + p] = -v;
+  }
+
+  __device__ void operator()(int row, const sel::Smem& s) const {
+    for (int p = threadIdx.x; p < k_out; p += blockDim.x)
+      emit(row, p, s.surv[p], 0);
+  }
+};
+
 }  // namespace
 
 extern "C" const char* error_string(int code) {
@@ -361,24 +448,57 @@ extern "C" int sparse_dot_shared_launch(const void* q_idx, const void* q_val,
 
 // q_idx i64 [B, Kq], q_val f32 [B, Kq], flat_slots i32 [B, N], short_pos
 // i32 [B, R], short_scores f32 [B, R], sp_idx i64 [cap, Kd], sp_val f32
-// [cap, Kd] -> final_slots i32 [B, k_out], dists f32 [B, k_out]; one
-// launch, 1 <= k_out <= R <= 8192.
+// [cap, Kd] -> final_slots i32 [B, k_out], dists f32 [B, k_out];
+// 1 <= k_out <= R. One launch for R <= 8192; above, the keys and the
+// split top-k in chunks of S (the wrapper's topk_select.chunk_plan), with
+// a scratch of at least B * R + B * level_out(R, k_out, S) int64 words
+// (keys, survivors), then B * R int32 (slots).
 extern "C" int sparse_rescore_topk_launch(
     const void* q_idx, const void* q_val, const void* flat_slots,
     const void* short_pos, const void* short_scores, const void* sp_idx,
-    const void* sp_val, void* final_slots, void* dists, int B, int N, int R,
-    int Kq, int Kd, int k_out, int device, void* stream) {
-  if (R < 1 || R > kMaxReorder || k_out < 1 || k_out > R)
+    const void* sp_val, void* final_slots, void* dists, void* scratch,
+    long long scratch_words, int B, int N, int R, int Kq, int Kd, int k_out,
+    int S, int device, void* stream) {
+  if (R < 1 || k_out < 1 || k_out > R || S < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (R > kMaxReorder) {
+    const size_t keys_n = (size_t)B * R;
+    const size_t level = (size_t)B * sel::level_out(R, k_out, S);
+    if (static_cast<size_t>(scratch_words) < keys_n + level
+                                                + (keys_n + 1) / 2)
+      return static_cast<int>(cudaErrorInvalidValue);
+    uint64_t* keys = static_cast<uint64_t*>(scratch);
+    uint64_t* other = keys + keys_n;
+    int* slots = reinterpret_cast<int*>(other + level);
+    return sel::on_device(device, [&]() -> cudaError_t {
+      const dim3 grid((R + kRescoreThreads - 1) / kRescoreThreads, B);
+      const size_t bytes = sizeof(int) * (kRescoreThreads + Kq
+                                          + (size_t)kRescoreThreads * Kd)
+                           + sizeof(float) * (Kq + (size_t)kRescoreThreads
+                                                   * Kd);
+      rescore_keys_kernel<<<grid, kRescoreThreads, bytes, st>>>(
+          static_cast<const int*>(q_idx), static_cast<const float*>(q_val),
+          static_cast<const int*>(flat_slots), N,
+          static_cast<const int*>(short_pos),
+          static_cast<const float*>(short_scores), R,
+          static_cast<const int*>(sp_idx), static_cast<const float*>(sp_val),
+          Kq, Kd, keys, slots);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      const RescoreFinal fin{slots, R, k_out, static_cast<int*>(final_slots),
+                             static_cast<float*>(dists)};
+      return sel::select_keys(keys, other, B, R, k_out, S, fin, device, st);
+    });
+  }
   return sel::on_device(device, [&]() -> cudaError_t {
     const size_t bytes = rescore_smem_bytes(R, Kq, Kd);
     static int granted[sel::kMaxDevices];
     cudaError_t err = sel::allow_smem(rescore_topk_kernel, bytes, device,
                                       granted);
     if (err != cudaSuccess) return err;
-    rescore_topk_kernel<<<B, kRescoreThreads, bytes,
-                          static_cast<cudaStream_t>(stream)>>>(
+    rescore_topk_kernel<<<B, kRescoreThreads, bytes, st>>>(
         static_cast<const int*>(q_idx), static_cast<const float*>(q_val),
         static_cast<const int*>(flat_slots), N,
         static_cast<const int*>(short_pos),

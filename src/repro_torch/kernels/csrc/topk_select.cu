@@ -31,8 +31,10 @@
 //     at the graph's merges).
 //   * longer rows: split into chunks (select.cuh); a block selects each
 //     chunk's top-min(k, chunk) in shared memory, and merge levels reduce
-//     the survivors to the row's top k. Nothing lives in global memory but
-//     the survivors between launches (a scratch the wrapper allocates).
+//     the survivors to the row's top k: levels of chunks while 2k <= the
+//     chunk, else pairwise merges of the chunks' sorted runs in device
+//     memory (any k <= N). Nothing lives in global memory but the
+//     survivors between launches (a scratch the wrapper allocates).
 //   * no device attribute is read per call: more than 48 KB of dynamic
 //     shared memory is granted once per kernel and device.
 #include "select.cuh"
@@ -122,7 +124,9 @@ short_rows_kernel(const float* __restrict__ scores, float* __restrict__ vals,
   }
 }
 
-// The last step of a long row: the sorted survivors become (value, index).
+// The last step of a long row: the sorted survivors become (value, index),
+// a block's worth at once (the halving merge) or one key at a time (the
+// pairwise merge).
 struct TopkFinal {
   float* vals;
   int* idxs;
@@ -131,26 +135,31 @@ struct TopkFinal {
   int k;
   bool tie;
 
+  // The row's last +0.0 index (-1 if none; unused unless zeros tie), from
+  // the first level's per-chunk answers. Whole block.
+  __device__ int prepare(int row, unsigned* cell) const {
+    if (!tie) return -1;
+    if (threadIdx.x == 0) *cell = 0;
+    __syncthreads();
+    for (int c = threadIdx.x; c < chunks0; c += blockDim.x)
+      atomicMax(cell, static_cast<unsigned>(
+          last_zero[static_cast<size_t>(row) * chunks0 + c] + 1));
+    __syncthreads();
+    return static_cast<int>(*cell) - 1;
+  }
+
+  __device__ void emit(int row, int r, uint64_t key, int last) const {
+    vals[static_cast<size_t>(row) * k + r] = written(key, last, tie);
+    idxs[static_cast<size_t>(row) * k + r] = sel::key_index(key);
+  }
+
   __device__ void write(int row, const sel::Smem& s, int last) const {
-    for (int r = threadIdx.x; r < k; r += blockDim.x) {
-      const uint64_t key = s.surv[r];
-      vals[static_cast<size_t>(row) * k + r] = written(key, last, tie);
-      idxs[static_cast<size_t>(row) * k + r] = sel::key_index(key);
-    }
+    for (int r = threadIdx.x; r < k; r += blockDim.x)
+      emit(row, r, s.surv[r], last);
   }
 
   __device__ void operator()(int row, const sel::Smem& s) const {
-    int last = -1;
-    if (tie) {                                 // the row's last +0.0
-      if (threadIdx.x == 0) s.scal[4] = 0;
-      __syncthreads();
-      for (int c = threadIdx.x; c < chunks0; c += blockDim.x)
-        atomicMax(&s.scal[4], static_cast<unsigned>(
-            last_zero[static_cast<size_t>(row) * chunks0 + c] + 1));
-      __syncthreads();
-      last = static_cast<int>(s.scal[4]) - 1;
-    }
-    write(row, s, last);
+    write(row, s, prepare(row, &s.scal[4]));
   }
 };
 
@@ -215,7 +224,8 @@ extern "C" const char* error_string(int code) {
 // than 256 is split into chunks of S (the wrapper's chunk_plan), which
 // needs a scratch of B * (2 * chunks * min(k, S) + chunks) int64 words
 // when there is more than one chunk. One call is one launch for short
-// rows or single-chunk rows, else two or more.
+// rows or single-chunk rows, else two or more (1 + ceil(log2(chunks))
+// when 2k > S).
 extern "C" int topk_select_launch(const void* scores, void* vals, void* idxs,
                                   void* scratch, long long scratch_words,
                                   int B, int N, int k, int S,
@@ -239,7 +249,6 @@ extern "C" int topk_select_launch(const void* scores, void* vals, void* idxs,
     }
     const int chunks = (N + S - 1) / S;
     const int m0 = std::min(k, S);
-    if (chunks > 1 && 2 * k > S) return cudaErrorInvalidValue;
     const size_t level = static_cast<size_t>(B) * chunks * m0;
     if (chunks > 1 && static_cast<size_t>(scratch_words)
                           < 2 * level + static_cast<size_t>(B) * chunks)
@@ -261,6 +270,8 @@ extern "C" int topk_select_launch(const void* scores, void* vals, void* idxs,
         sc, N, chunks, keys, n_out, last_zero, k, S, fin);
     err = cudaGetLastError();
     if (err != cudaSuccess || chunks == 1) return err;
-    return sel::merge_levels(keys, other, B, n_out, k, S, fin, device, st);
+    if (2 * k <= S)
+      return sel::merge_levels(keys, other, B, n_out, k, S, fin, device, st);
+    return sel::merge_runs(keys, other, B, N, k, S, fin, st);
   });
 }

@@ -24,7 +24,12 @@ construction.
 
 Each wrapper launches the kernel for CUDA tensors and runs the plain
 version for CPU tensors; ``<wrapper>.launches`` counts the calls that
-launched it (a call is two kernel launches: the chunks, then the merge).
+launched it (a call is two kernel launches, the chunks then the merge,
+or more on long rows: ``csrc/fused_query.cu``). Every k <= N takes the
+kernel: while 2k <= the chunk (``topk_select.chunk_plan``: k <= 2,048 on
+rows of more than 8,192 candidates, k <= 4,096 below) one merge block
+per row merges the chunks and dedups; above that the chunks' sorted runs
+are merged pairwise in device memory and a dedup kernel follows.
 """
 from __future__ import annotations
 

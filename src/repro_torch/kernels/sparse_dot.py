@@ -29,15 +29,16 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import sparse_dot_seq_ref, topk_ref
-from repro_torch.kernels.topk_select import CHUNK
+from repro_torch.kernels.topk_select import CHUNK, chunk_plan
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _SHARED_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                     + [ctypes.c_void_p])
-_RESCORE_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                     + [ctypes.c_void_p])
-# the rescore kernel sorts a row's shortlist in one block: up to the
-# longest shortlist the top-k kernels give (a row of two chunks, whole)
+_RESCORE_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong]
+                     + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+# the longest shortlist the rescore sorts in one block (a row of two
+# chunks of the top-k kernels, whole); longer ones go through a [B, r]
+# scratch of keys and the split top-k
 MAX_REORDER = 2 * CHUNK
 # db rows per plain-version chunk: bounds its [B, rows, Kq, Kd] temporaries
 _PLAIN_ELEMS = 1 << 24
@@ -157,7 +158,13 @@ def sparse_rescore_topk(q_idx, q_val, flat_slots, short_pos, short_scores,
     [B, r] (-inf: out); the slab sp_idx i64 [cap, Kd], sp_val f32
     [cap, Kd] -> (final_slots i32 [B, k'], dists f32 [B, k']), k' =
     min(k, r): the shortlist's top k' by exact score, slot -1 and dist +inf
-    where the score is -inf, dist = -score."""
+    where the score is -inf, dist = -score.
+
+    On the card a shortlist of at most ``MAX_REORDER`` entries is one
+    launch (one block a row sorts it whole); a longer one computes the
+    same keys tile by tile into a [B, r] scratch and selects from them
+    with the split top-k of ``topk_select`` (``chunk_plan``), in the same
+    order. Both are one call of the wrapper."""
     b, kq = q_idx.shape
     r = short_pos.shape[1]
     if (q_val.shape != q_idx.shape or flat_slots.dim() != 2
@@ -176,9 +183,6 @@ def sparse_rescore_topk(q_idx, q_val, flat_slots, short_pos, short_scores,
     if _build.device_kind(q_idx, "sparse_rescore_topk") == "cpu":
         return sparse_rescore_topk_plain(q_idx, q_val, flat_slots, short_pos,
                                          short_scores, sp_idx, sp_val, k)
-    if r > MAX_REORDER:
-        raise ValueError(f"sparse_rescore_topk: a shortlist of {r} entries; "
-                         f"the kernel takes at most {MAX_REORDER} (reorder)")
     dev = q_idx.device
     tensors = {"q_idx": (q_idx, torch.int64), "q_val": (q_val, torch.float32),
                "flat_slots": (flat_slots, torch.int32),
@@ -191,11 +195,18 @@ def sparse_rescore_topk(q_idx, q_val, flat_slots, short_pos, short_scores,
     kk = min(k, r)
     slots = torch.empty((b, kk), dtype=torch.int32, device=dev)
     dists = torch.empty((b, kk), dtype=torch.float32, device=dev)
+    chunk, words = chunk_plan(r, kk)
+    # above MAX_REORDER: keys [B, r], the split's survivors, slots [B, r]
+    words = b * (r + words) + (b * r + 1) // 2 if r > MAX_REORDER else 0
+    scratch = (torch.empty(words, dtype=torch.int64, device=dev)
+               if words else None)
     launch = _build.function("sparse_dot", "sparse_rescore_topk_launch",
                              _RESCORE_ARGTYPES)
     code = launch(*[t.data_ptr() for t in args], slots.data_ptr(),
-                  dists.data_ptr(), b, flat_slots.shape[1], r, kq,
-                  sp_idx.shape[1], kk, dev.index, _build.stream_of(q_idx))
+                  dists.data_ptr(),
+                  None if scratch is None else scratch.data_ptr(), words, b,
+                  flat_slots.shape[1], r, kq, sp_idx.shape[1], kk, chunk,
+                  dev.index, _build.stream_of(q_idx))
     _build.check(code, "sparse_dot", "sparse_rescore_topk launch")
     sparse_rescore_topk.launches += 1
     return slots, dists

@@ -18,7 +18,7 @@ zeros, and the reference has both:
 ``topk_select`` launches the kernel for CUDA tensors and runs the plain
 version for CPU tensors; ``topk_select.launches`` counts the calls that
 launched it (a long row's call is two or more launches: a split and its
-merge).
+merges).
 """
 from __future__ import annotations
 
@@ -37,18 +37,18 @@ CHUNK = 4096      # entries a block selects from on a long row (one index slab)
 def chunk_plan(n: int, k: int) -> tuple[int, int]:
     """How the kernels split a row of ``n`` entries for a top-``k``:
     (chunk length, int64 scratch words per row). A row longer than one
-    chunk is cut into chunks whose top-min(k, chunk) a block each selects,
-    then merged; that shrinks the row only while 2k <= chunk, so the chunk
-    doubles for k above ``CHUNK // 2`` and larger k on longer rows raise.
-    Scratch: two ping-pong buffers of the first split's survivors and one
-    word per chunk (``csrc/select.cuh``)."""
+    chunk is cut into chunks whose top-min(k, chunk) a block each selects
+    (the chunk doubles for k above ``CHUNK // 2``). While 2k <= chunk,
+    levels of chunks over the survivors shrink the row until one block
+    holds it; above, the chunks' sorted runs are merged pairwise in device
+    memory, each merge keeping the top min(k, both runs), until one run is
+    left (``csrc/select.cuh``), so every k <= n is taken. Scratch: two
+    ping-pong buffers of the first split's survivors and one word per
+    chunk."""
     s = CHUNK if n <= CHUNK or 2 * k <= CHUNK else 2 * CHUNK
     chunks = -(-n // s)
     if chunks == 1:
         return s, 0
-    if 2 * k > s:
-        raise ValueError(f"k={k} on rows of {n}: the split top-k takes "
-                         f"k <= {s // 2} on rows longer than {s}")
     return s, 2 * chunks * min(k, s) + chunks
 
 

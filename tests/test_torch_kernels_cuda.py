@@ -115,6 +115,26 @@ def test_sparse_dot_batched_matches_plain(card, unit):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+@pytest.mark.parametrize("unit", [True, False])
+def test_sparse_dot_batched_multimodal_shape(card, unit):
+    """The two-stage retrieval's exact distances: 16 queries of K = 14
+    (the products buckets) against their 21 candidates (11 dense + 10
+    sparse), the rows of missing candidates all padding."""
+    rng = np.random.default_rng(2)
+    q = cases.sparse_rows(rng, (16, 14), 40, unit)
+    db = cases.sparse_rows(rng, (16, 21, 14), 40, unit)
+    db[0][:, 15:] = PAD_INDEX                     # candidates -1
+    db[1][:, 15:] = 0.0
+    args = [torch.as_tensor(a).to(card) for a in (*q, *db)]
+    before = sparse_dot.sparse_dot_batched.launches
+    got = sparse_dot.sparse_dot_batched(*args)
+    want = sparse_dot.sparse_dot_plain(*args)
+    torch.cuda.synchronize()
+    assert sparse_dot.sparse_dot_batched.launches == before + 1
+    assert _bits_equal(got, want)
+    assert (got[:, 15:] == 0).all()
+
+
 def _bits_equal(got, want) -> bool:
     """f32 tensors equal bit for bit (the signs of zeros included)."""
     return torch.equal(got.view(torch.int32), want.view(torch.int32))
@@ -190,15 +210,20 @@ def test_brute_search_matches_cpu(card, unit):
 
 
 def test_brute_search_refuses_k_past_split(card):
-    """On the card a k that the split top-k does not take raises, naming
-    the limit, instead of falling back to a sort."""
+    """A k past the split top-k's old limit (k = 4,097 on a 16,384-slot
+    index) is no longer refused: the card answers it as the same index
+    answers on the CPU, ids exactly, distances bitwise. (The name is the
+    one the test had when it pinned the refusal.)"""
     rng = np.random.default_rng(16)
-    index = _brute(card, cases.sparse_rows(rng, (9000, 9), 300, True))
-    assert index.capacity == 16_384
-    q = [torch.as_tensor(a).to(card)
-         for a in cases.sparse_rows(rng, (4, 9), 300, True)]
-    with pytest.raises(ValueError, match="k <= 4096"):
-        index.search(SparseBatch(*q), 4097)
+    rows = cases.sparse_rows(rng, (9000, 9), 300, True)
+    on_card, on_cpu = _brute(card, rows), _brute("cpu", rows)
+    assert on_card.capacity == 16_384
+    q = [torch.as_tensor(a) for a in cases.sparse_rows(rng, (4, 9), 300,
+                                                       True)]
+    got = on_card.search(SparseBatch(q[0].to(card), q[1].to(card)), 4097)
+    want = on_cpu.search(SparseBatch(*q), 4097)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert np.array_equal(got[1].view(np.int32), want[1].view(np.int32))
 
 
 @pytest.mark.parametrize("b,f,h", [(160, 3, 10), (1, 7, 32), (1000, 5, 1)])
@@ -296,6 +321,54 @@ def test_topk_select_above_64_matches_plain(card, b, n, k):
     _topk_check(cases.topk_inputs(np.random.default_rng(n), b, n), k, card)
 
 
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("name", ["B=4 N=32768 k=4097",
+                                  "B=2 N=131072 k=16384",
+                                  "B=3 N=40000 k=5000",
+                                  "B=2 N=20000 k=20000"])
+def test_topk_select_past_half_chunk(card, name, signed):
+    """k above half a chunk on rows of several chunks (the pairwise merge
+    of the chunks' sorted runs), bitwise in both signed-zero orders, with
+    +0.0 and -0.0 inside every cut (cases.topk_long_k_cases)."""
+    scores, k = {n: (s, k) for n, s, k in
+                 cases.topk_long_k_cases(np.random.default_rng(21))}[name]
+    scores = torch.as_tensor(scores).to(card)
+    before = topk_select.topk_select.launches
+    got = topk_select.topk_select(scores, k, signed_zeros=signed)
+    want = topk_select.topk_select_plain(scores, k, signed_zeros=signed)
+    torch.cuda.synchronize()
+    assert topk_select.topk_select.launches == before + 1
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_fused_query_past_half_chunk(card, int8):
+    """The fused shortlist at k = 4,097 over N = 32,768 candidates (past
+    what its one merge block takes) stays on the fused kernel (the
+    pairwise merge and the dedup kernel), bitwise its plain version, ties
+    and duplicate ids included."""
+    rng = np.random.default_rng(23)
+    case = cases.fused_query_inputs(rng, 2, 32768, 8, 256, 20000, 0.1,
+                                    ties=True)
+    args = [torch.as_tensor(case[name]).to(card) for name in cases.FQ_ORDER]
+    table = ops.quantize_lut(args[0]) if int8 else (args[0],)
+    kernel, plain = ((fused_query.fused_query_kernel_int8,
+                      fused_query.fused_query_int8_plain) if int8 else
+                     (fused_query.fused_query_kernel,
+                      fused_query.fused_query_plain))
+    before = (kernel.launches, pq_score.pq_score_batched.launches,
+              topk_select.topk_select.launches)
+    got = kernel(*table, *args[1:], 4097)
+    want = plain(*table, *args[1:], 4097)
+    torch.cuda.synchronize()
+    assert (kernel.launches, pq_score.pq_score_batched.launches,
+            topk_select.topk_select.launches) == (before[0] + 1, *before[1:])
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.isinf(got[0]).any() and torch.isfinite(got[0]).any()
+
+
 @pytest.mark.parametrize("form,b,n,m,c", [("batched", 16, 32768, 8, 256),
                                           ("shared", 16, 131072, 8, 256),
                                           ("batched", 3, 1001, 5, 20)])
@@ -378,18 +451,29 @@ def test_sparse_rescore_topk_matches_plain_bitwise(card, b, k, unit):
 def test_sparse_rescore_topk_shortlist_lengths(card, r):
     """A shortlist of one, one over two tiles of 128 entries with a ragged
     end and a non-power-of-two sort, one above the default shared memory
-    (2,048), and the kernel's largest (8,192, the longest shortlist the
-    top-k kernels give); r = 8,193 raises, naming the limit."""
+    (2,048), and the one-block kernel's largest (8,192); past it, r =
+    8,193 (refused before the keys route) equals its plain version too."""
     rng = np.random.default_rng(r)
     n = max(4096, r)
     case = cases.rescore_inputs(rng, 4, n, r, 5000, 9, 40, True)
     _rescore_check(case, min(r, 17), card)
     if r == sparse_dot.MAX_REORDER:
         case = cases.rescore_inputs(rng, 2, r + 1, r + 1, 5000, 9, 40, True)
-        args = [torch.as_tensor(case[name]).to(card)
-                for name in cases.RESCORE_ORDER]
-        with pytest.raises(ValueError, match=f"at most {r}"):
-            ops.sparse_rescore_topk(*args, 10)
+        _rescore_check(case, 10, card)
+
+
+@pytest.mark.parametrize("unit", [True, False])
+@pytest.mark.parametrize("r,k", [(8193, 17), (8193, 5000), (16384, 11),
+                                 (16384, 16384)])
+def test_sparse_rescore_topk_long_shortlists(card, r, k, unit):
+    """Shortlists past the one-block kernel (r > 8,192): the keys tile by
+    tile into a [B, r] scratch, then the split top-k, with the halving
+    merge (small k) or the pairwise one (k = 5,000 and k = r), bitwise
+    its plain version at unit and IDF-like values."""
+    rng = np.random.default_rng(r + k)
+    case = cases.rescore_inputs(rng, 3, r + 100, r, 20_000, 9, 40, unit)
+    slots, _ = _rescore_check(case, k, card)
+    assert slots.shape == (3, k) and (slots[0] == -1).all()
 
 
 @pytest.mark.parametrize("p,group", [(160, 1), (160, 10), (4096, 1),

@@ -8,10 +8,12 @@ of the top-k and fused-shortlist kernels, on the CPU.
 * A plain model of what ``csrc/topk_select.cu`` and ``csrc/fused_query.cu``
   compute on a long row: packed (value, index) keys, each chunk's
   top-min(k, chunk), the survivors merged (again, while the row is longer
-  than a chunk), the row's top-k, then the dedup-after-cut with one check
-  per entry. It is written here, not in the package, and held bitwise
-  against the plain versions and the reference over the split edge cases
-  of ``kernels/cases.py`` at several chunk sizes, chunk < k among them.
+  than a chunk; or, at k > chunk / 2, the chunks' sorted runs merged
+  pairwise by merge-path splits, as ``select.cuh::merge_runs`` does), the
+  row's top-k, then the dedup-after-cut with one check per entry. It is
+  written here, not in the package, and held bitwise against the plain
+  versions and the reference over the split edge cases of
+  ``kernels/cases.py`` at several chunk sizes, chunk < k among them.
   That shows on the CPU that the decomposition is exact; the card tests
   hold the kernels against the plain versions.
 """
@@ -99,18 +101,73 @@ def _unkey(keys: torch.Tensor):
     return bits.view(torch.float32), idx.to(torch.int32)
 
 
+TILE, ITEMS = 6, 2     # kMergeTile and kMergeItems of select.cuh, cut down
+
+
+def _merge_split(a: list, b: list, d: int) -> int:
+    """select.cuh's merge_split: how many of the first d keys of the
+    merge of a and b (both descending) come from a."""
+    lo, hi = max(0, d - len(b)), min(d, len(a))
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if a[mid] > b[d - 1 - mid]:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def _merge_pair(a: list, b: list, k: int) -> list:
+    """merge_runs_kernel's order of work on one pair of sorted runs: the
+    top min(k, both) outputs in tiles of TILE cut by two merge splits,
+    each tile's stretches of a and b staged, each thread's ITEMS outputs
+    merged from its own split of the staged stretches."""
+    n_out = min(k, len(a) + len(b))
+    out = []
+    for d0 in range(0, n_out, TILE):
+        d1 = min(d0 + TILE, n_out)
+        i0, i1 = _merge_split(a, b, d0), _merge_split(a, b, d1)
+        sa, sb = a[i0:i1], b[d0 - i0:d1 - i1]
+        for lo in range(0, d1 - d0, ITEMS):
+            i = _merge_split(sa, sb, lo)
+            j = lo - i
+            for _ in range(lo, min(lo + ITEMS, d1 - d0)):
+                if j >= len(sb) or (i < len(sa) and sa[i] > sb[j]):
+                    out.append(sa[i])
+                    i += 1
+                else:
+                    out.append(sb[j])
+                    j += 1
+    return out
+
+
 def _split_topk(keys: torch.Tensor, k: int, chunk: int) -> torch.Tensor:
-    """The kernels' order of work: the top-min(k, len) keys of every chunk
-    (their order inside a chunk does not matter), the survivors laid end to
-    end chunk by chunk, again while the row is longer than a chunk and
-    shrinks, then the row's top-k in descending order."""
-    while keys.shape[1] > chunk:
-        kept = torch.cat([part.topk(min(k, part.shape[1]), dim=1).values
-                          for part in keys.split(chunk, dim=1)], dim=1)
-        if kept.shape[1] == keys.shape[1]:      # chunk <= k: nothing cut
-            break
-        keys = kept
-    return keys.topk(k, dim=1).values
+    """The kernels' order of work: the top-min(k, len) keys of every chunk,
+    sorted. While 2k <= chunk, the survivors laid end to end chunk by
+    chunk are split again until one chunk holds the row (the order inside
+    a chunk does not matter there), then the row's top-k in descending
+    order. Above, the chunks' sorted runs are merged pairwise, a lone last
+    run carried over, each merge keeping the top min(k, both), until one
+    run is left."""
+    if keys.shape[1] <= chunk:
+        return keys.topk(k, dim=1).values
+    runs = [part.topk(min(k, part.shape[1]), dim=1).values
+            for part in keys.split(chunk, dim=1)]
+    if 2 * k <= chunk:
+        keys = torch.cat(runs, dim=1)
+        while keys.shape[1] > chunk:
+            keys = torch.cat([part.topk(min(k, part.shape[1]), dim=1).values
+                              for part in keys.split(chunk, dim=1)], dim=1)
+        return keys.topk(k, dim=1).values
+    rows = []
+    for r in range(keys.shape[0]):
+        level = [run[r].tolist() for run in runs]
+        while len(level) > 1:
+            level = [_merge_pair(level[i], level[i + 1] if i + 1 < len(level)
+                                 else [], k)
+                     for i in range(0, len(level), 2)]
+        rows.append(level[0])
+    return torch.tensor(rows, dtype=torch.int64)
 
 
 def _model_topk(scores: torch.Tensor, k: int, chunk: int, signed: bool):
@@ -198,3 +255,27 @@ def test_split_fused_model_is_exact(name):
         for r in range(2):
             picked = args[2][r][plain[1][r].long()][finite[r]]
             assert len(set(picked.tolist())) == int(finite[r].sum())
+
+
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("n,k,chunk", [(64, 9, 16), (80, 30, 16),
+                                       (49, 26, 16), (257, 40, 32),
+                                       (100, 100, 24)])
+def test_split_topk_pairwise_merge_is_exact(n, k, chunk, signed):
+    """At k > chunk / 2 on rows of several chunks, where the chunks'
+    sorted runs are merged pairwise (4 and 5 chunks, a last chunk of one
+    entry, 9 chunks, k = N): the model equals ``topk_ref`` (lax.top_k's
+    order) and the plain version of the Pallas order, bitwise. Scores
+    come from few values with both zeros inside every cut and -inf
+    holes, as ``cases.topk_long_k_cases`` draws them for the card."""
+    rng = np.random.default_rng(n + k)
+    vals = np.asarray([0.5, 0.0, -0.0, -0.25, -np.inf], np.float32)
+    scores = rng.choice(vals, (3, n), p=[0.05, 0.3, 0.3, 0.15, 0.2])
+    scores[-1, n // 4:] = -np.inf
+    scores = torch.as_tensor(scores)
+    want = (ref.topk_ref(scores, k) if signed
+            else topk_select.topk_select_plain(scores, k))
+    got = _model_topk(scores, k, chunk, signed)
+    _assert_bitwise((got[0].numpy(), got[1].numpy()),
+                    (want[0].numpy(), want[1].numpy()))
+    assert (got[0] == 0).any()

@@ -27,6 +27,26 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    the adjacency must be exactly symmetric and its connected components
    equal to union-find over its edges; edge recall against an offline
    rebuild at matched k on 1,024 live ids drawn with a fixed seed;
+6. the serving plane (run after phase 4), through ``launch/serve.py``'s
+   ``build_engine`` at the main path's size and config: a pipelined
+   ``GusEngine`` with one replica and a synchronous twin from the same
+   seed take 24 batches (16 insert-only, which fuse, then 8 of the
+   default mix); index arrays and 64 neighborhoods must be equal bit for
+   bit and fewer than 24 windows encoded; the device's idle share over
+   the 16 insert-only batches on each path; 16 more batches on the
+   pipelined engine, each timed from its submit to the hand-off that
+   makes it visible on both members (freshness); 10 warm 16-id engine
+   queries, then a scripted straggler (one hedge, answered as the replica
+   answers), a dead primary (fail-over), 3 batches it misses and its
+   revival (catch-up of those 3, bit for bit the replica); a snapshot, 4 more batches and two
+   recoveries (the live store, equal to each other bit for bit, recall@10
+   within 0.02 of the live engine's); phase 4's graph engine snapshotted
+   and restored with ``staleness_bound=2`` (no re-seed), 20 batches
+   through ``MutationPipeline`` with the lag at most 2 after every
+   hand-off and the published view equal to the graph, exactly
+   symmetric, after ``flush``; 200 requests (3 queries to 1 mutation)
+   through ``Frontend`` with queues small enough to shed: bounds held,
+   every accepted request answered once, the registry reconciled;
 5m. the multi-modal plane: (a) ``products-multimodal``, an
    ogbn-products-like corpus (dense 100, a co-purchase set of 16) at
    169,343 points, 60% bootstrapped, with launch/serve.py's buckets and
@@ -51,14 +71,18 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    sort, with the route ``ops.topk_select`` takes there). Phase 5m
    records the shape of every two-stage retrieval and brute search it
    makes, and phase 5 checks sparse_dot_batched, pair_score, the masked
-   sparse_dot and topk_select at each of them;
-6. print one JSON line with each kernel's numbers, then the result line.
+   sparse_dot and topk_select at each of them; phase 6 records the shape
+   of every fused shortlist, rescore, pair scoring, top-k and brute
+   search it makes, and phase 5 checks those kernels at each of them;
+7. print one JSON line with each kernel's numbers (with its launches on
+   each path, ``launches_serve`` the serving phase's), then the result
+   line.
 
-Phases 2-4 and 5m each zero the kernel launch counts just before they
+Phases 2-4, 6 and 5m each zero the kernel launch counts just before they
 start and read them just after; every kernel a phase runs must have
 launched in it. The index paths reach the exact rescore through
 ``sparse_rescore_topk`` and pair scoring through ``pair_score``, so
-phases 2-4 must not launch the standalone ``sparse_dot_batched`` or
+phases 2-4 and 6 must not launch the standalone ``sparse_dot_batched`` or
 ``scorer_mlp``; the multi-modal phase runs ``sparse_dot_batched`` itself
 and must not launch ``scorer_mlp``. ``scorer_mlp`` and ``pq_score``
 (shared codes) have no caller on a path, so their launches are counted
@@ -265,8 +289,8 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
 
     # every shape the multi-modal phase gave: sparse_dot_batched at each
     # two-stage retrieval's (rows, r_max, K) (its pair_score below), and
-    # each brute search of the time-to-flag, the masked shared sparse_dot
-    # over the index's slots and the top-k in lax.top_k's order; unit
+    # each brute search of the time-to-flag and of the serving phase's
+    # recall oracle, the masked shared sparse_dot over the index's slots and the top-k in lax.top_k's order; unit
     # values (ties) and IDF-like ones, bitwise
     for _, rows, r_max, kdim in shapes["mm_calls"]:
         for unit in (True, False):
@@ -620,7 +644,70 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
             bound_ms=bound, bound_by=by)
     for spec, rows, r_max, _ in shapes["mm_calls"]:
         check_pairs(spec, rows * r_max, r_max)
+    check_serving_shapes(torch, rng, on_card, shapes, check_rescore,
+                         check_pairs)
     return report
+
+
+def check_serving_shapes(torch, rng, on_card, shapes: dict, check_rescore,
+                         check_pairs) -> None:
+    """Phase 5, the serving phase's shapes (``shapes["serve_calls"]``,
+    its brute searches are among ``shapes["brute_calls"]``): the fused
+    shortlist of every query batch it ran (the engine pads 1-4 front-end
+    rows to 1, 2 or 4; 64 ids in its bitwise and recall checks), the
+    rescore and the pair scoring after each, and every top-k of the
+    graph's merges and reads under the maintenance plane; bitwise but for
+    pair_score (rtol 1e-5, atol 1e-6). ``check_rescore`` and
+    ``check_pairs`` are ``check_kernels``' own checks."""
+    from repro_torch.core.scorer import pair_layout
+    from repro_torch.kernels import cases, fused_query, ops, topk_select
+
+    calls = shapes["serve_calls"]
+    for b, n, m, c, k, int8 in sorted(calls["fq"]):
+        inputs = cases.fused_query_inputs(rng, b, n, m, c, max(n // 2, 1),
+                                          0.1)
+        args = on_card([inputs[a] for a in cases.FQ_ORDER])
+        if int8:
+            table = ops.quantize_lut(args[0])
+            got = fused_query.fused_query_kernel_int8(*table, *args[1:], k)
+            want = fused_query.fused_query_int8_plain(*table, *args[1:], k)
+        else:
+            got = fused_query.fused_query_kernel(*args, k)
+            want = fused_query.fused_query_plain(*args, k)
+        torch.cuda.synchronize()
+        if not _bitwise(torch, got, want):
+            raise AssertionError(f"fused_query differs from its plain "
+                                 f"version at the serving phase's B={b} "
+                                 f"N={n} M={m} C={c} k={k} int8={int8}")
+        print(f"[kernels] fused_query serve B={b} N={n} M={m} C={c} k={k} "
+              f"int8={int8}: bitwise equal")
+    for b, n, r, cap, kq, kd, k in sorted(calls["rescore"]):
+        if kq != kd:
+            raise AssertionError(f"the serving phase's rescore had Kq={kq} "
+                                 f"against Kd={kd}: no case for it")
+        for unit in (True, False):
+            check_rescore(b, n, r, cap, kd, k, unit)
+    specs = {pair_layout(spec)[1]: spec
+             for spec in (shapes["spec"], shapes["mm_spec"])}
+    for layout, p, group in sorted(calls["pair"], key=lambda c: c[1:]):
+        if layout not in specs:
+            raise AssertionError(f"the serving phase scored pairs of an "
+                                 f"unknown layout {layout}")
+        check_pairs(specs[layout], p, group)
+    for b, n, k in sorted(calls["topk"]):
+        for ties in (False, True):
+            scores = on_card([cases.topk_inputs(rng, b, n, ties)])[0]
+            got = ops.topk_select(scores, k)
+            want = topk_select.topk_select_plain(scores, k,
+                                                 signed_zeros=k > 64)
+            torch.cuda.synchronize()
+            if not _bitwise(torch, got, want):
+                raise AssertionError(f"topk_select differs from its plain "
+                                     f"version at the serving phase's "
+                                     f"B={b} N={n} k={k} (ties={ties})")
+    print(f"[kernels] topk_select at the serving phase's "
+          f"{len(calls['topk'])} shapes, with and without ties: bitwise "
+          f"equal")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -1016,12 +1103,388 @@ def run_graph_path(torch, dev, ctx: dict) -> tuple[dict, dict]:
                       "the graph path")
     if not recall > 0.5:
         raise AssertionError(f"edge recall {recall} <= 0.5")
+    ctx["graph"] = (gus, stream)           # phase 6 restores this engine
     # seeding chunks of 256 ids search k = probe + 1 and score 256 x probe
     probe = gus.graph.cfg.probe_k()
     shapes = dict(merge=(1024, gus.graph.width + 64, gus.graph.width),
                   read=(16, gus.graph.width, k), rescore=(256, probe + 1),
                   pair=(256 * probe, probe))
     return out, shapes
+
+
+# ---------------------------------------------------------------- phase 6
+
+_INDEX_ARRAYS = ("sp_idx", "sp_val", "members", "codes_list", "valid_list")
+
+
+def _same_index(torch, a, b) -> bool:
+    """Two scann engines hold the same index, bit for bit: the slab
+    arrays on the card and the host id maps."""
+    return a.index.slot_of == b.index.slot_of and all(
+        torch.equal(getattr(a.index, n), getattr(b.index, n))
+        for n in _INDEX_ARRAYS)
+
+
+def _same_answer(x, y) -> bool:
+    return all(np.array_equal(getattr(x, f), getattr(y, f))
+               for f in ("ids", "weights", "distances"))
+
+
+def _device_idle(torch, fn) -> dict:
+    """Wall ms, device busy ms (kernels and copies) and the device's idle
+    share of one call of ``fn``, under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    return dict(wall_ms=wall_ms, device_ms=busy_ms,
+                device_idle_share=1.0 - busy_ms / wall_ms)
+
+
+def _brute_oracle(torch, gus, qids):
+    """The exact index over ``gus``'s live corpus, and its top-10 for
+    ``qids`` (the recall oracle of phase 2)."""
+    from repro_torch.ann.brute import BruteIndex
+    live = gus.store.ids()
+    brute = BruteIndex(gus.embedder.k_max, device=gus.device)
+    brute.upsert(live, gus.embedder(gus.store.gather(live)))
+    return brute.search(gus.embedder(gus.store.gather(qids)), 10)
+
+
+def _recall(gus, qids, exact) -> float:
+    emb = gus.embedder(gus.store.gather(qids))
+    return _recall_at_10(exact, gus.index.search(emb, 10))
+
+
+def run_serving_path(torch, n_points: int, dev, graph: tuple) -> dict:
+    """Phase 6: the serving plane through its entry points. (1) a
+    pipelined engine with one replica from ``launch/serve.py::
+    build_engine`` and a synchronous twin from the same seed take 24
+    batches (16 insert-only, which fuse, then 8 of the default mix) and
+    must hold the same index bit for bit; (2) warm queries, a scripted
+    straggler (a hedge), a dead primary (fail-over), its revival
+    (catch-up); (3) snapshot, 4 more batches, two recoveries that must
+    agree bit for bit and keep recall within 0.02; (4) phase 4's graph
+    engine restored with ``staleness_bound=2`` and 20 pipelined batches
+    through the maintenance plane; (5) 200 requests through the
+    front-end. ``graph`` is phase 4's (engine, stream). Returns the
+    metrics, with ``calls``: every shape the phase gave the fused
+    shortlist, the rescore, the pair scorer, the top-k and the brute
+    search, for phase 5 to check the kernels at."""
+    from repro_torch.ann.brute import BruteIndex
+    from repro_torch.core.gus import DynamicGUS
+    from repro_torch.core.maintenance import MaintenanceConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import BUCKETS, build_engine
+    from repro_torch.serve import (EngineConfig, FaultInjector, Frontend,
+                                   FrontendConfig, MutationPipeline)
+    primary_key = FaultInjector.PRIMARY
+
+    # the shapes of this phase's kernel calls, recorded until the launch
+    # counts are read
+    calls = {name: set() for name in ("fq", "rescore", "pair", "topk",
+                                      "brute")}
+    recording = contextlib.ExitStack()
+    for owner, name, key, into in (
+            (ops, "pq_score_dedup_topk", _fq_key, calls["fq"]),
+            (ops, "sparse_rescore_topk", _rescore_key, calls["rescore"]),
+            (ops, "pair_score", _pair_key, calls["pair"]),
+            (ops, "topk_select", _topk_key, calls["topk"]),
+            (BruteIndex, "search", _brute_key, calls["brute"])):
+        recording.enter_context(_record_calls(owner, name, key, into))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+
+    # 1. the pipelined engine, its replica and the synchronous twin
+    t0 = time.perf_counter()
+    engine, stream, _ = build_engine("arxiv", n_points, replicas=1,
+                                     engine_cfg=EngineConfig(pipeline=True),
+                                     device=dev)
+    twin, _, _ = build_engine("arxiv", n_points, device=dev)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    mix = stream.cfg
+    stream.cfg = dataclasses.replace(mix, insert_frac=1.0, update_frac=0.0)
+    batches = [next(stream) for _ in range(16)]
+    stream.cfg = mix
+    batches += [next(stream) for _ in range(8)]
+
+    def feed(eng, items):
+        for batch in items:
+            eng.submit_mutations(batch)
+
+    # the device's idle share over the 16 insert-only batches on each
+    # path, the pipelined one flushed (two whole windows of 8)
+    idle = {"pipelined": _device_idle(torch, lambda: (
+                feed(engine, batches[:16]), engine.flush())),
+            "sync": _device_idle(torch, lambda: feed(twin, batches[:16]))}
+    for eng in (engine, twin):
+        feed(eng, batches[16:])
+    engine.flush()
+    pipe = engine.pipelines[0]
+    qids = np.random.default_rng(3).choice(twin.gus.store.ids(), 64,
+                                           replace=False)
+    if pipe.windows >= 24:
+        raise AssertionError(f"no window fused: {pipe.windows} windows")
+    for member in (engine.gus, engine.replicas[0]):
+        if not _same_index(torch, member, twin.gus):
+            raise AssertionError("pipelined index differs from sync")
+        if not _same_answer(member._index_neighbors_of_ids(qids, 10),
+                            twin.gus._index_neighbors_of_ids(qids, 10)):
+            raise AssertionError("pipelined answers differ from sync")
+    desc = pipe.describe()
+    out.update(
+        windows=pipe.windows, submitted=pipe.submitted,
+        encode_p50_ms=desc["encode"]["p50_ms"],
+        encode_p99_ms=desc["encode"]["p99_ms"],
+        handoff_p50_ms=desc["handoff"]["p50_ms"],
+        handoff_p99_ms=desc["handoff"]["p99_ms"],
+        submit_p50_ms=engine.freshness.summary()["p50_ms"],
+        submit_p99_ms=engine.freshness.summary()["p99_ms"],
+        sync_freshness_p50_ms=twin.freshness.summary()["p50_ms"],
+        sync_freshness_p99_ms=twin.freshness.summary()["p99_ms"],
+        idle=idle)
+
+    # freshness of the pipelined path: 16 more batches of the default mix,
+    # each timed from its submit to the end of the hand-off that applies
+    # it on both members (a read sees it from then on without a flush;
+    # the last window's hand-off is the flush's). engine_freshness_ms
+    # above is the submit call's wall, the staging alone
+    members = (engine.gus, engine.replicas[0])
+    base = [m.seq_applied for m in members]
+    t_submit, visible_ms = [], []
+
+    def mark():
+        now = time.perf_counter()
+        done = min(m.seq_applied - b for m, b in zip(members, base))
+        while len(visible_ms) < done:
+            visible_ms.append((now - t_submit[len(visible_ms)]) * 1e3)
+
+    for _ in range(16):
+        batch = next(stream)
+        t_submit.append(time.perf_counter())
+        engine.submit_mutations(batch)
+        mark()
+    engine.flush()
+    mark()
+    if len(visible_ms) != 16:
+        raise AssertionError(f"{len(visible_ms)} of 16 batches visible "
+                             f"after flush")
+    out.update(freshness_p50_ms=float(np.percentile(visible_ms, 50)),
+               freshness_p99_ms=float(np.percentile(visible_ms, 99)))
+    print(f"[serve] pipelined (primary + replica) == sync, bitwise: index "
+          f"arrays and 64 neighborhoods; {out['windows']} windows for 24 "
+          f"batches; build {out['build_s']:.1f} s; " + json.dumps(
+              {k: v for k, v in out.items() if k != "build_s"}))
+    del twin
+    torch.cuda.empty_cache()
+
+    # 2. queries, a hedge, fail-over and catch-up
+    feats = [stream.query_features(16) for _ in range(12)]
+    engine.query(feats[0])                     # set-up: loads modules
+    engine.serving.reset()
+    for f in feats[1:11]:
+        res = engine.query(f)
+        if res.ids.shape != (16, 10) or not np.isfinite(
+                res.weights[res.ids >= 0]).all():
+            raise AssertionError("engine query returned bad rows")
+    warm = engine.serving.summary()
+    faults = engine.faults
+    faults.slow(primary_key, 10 * engine.cfg.hedge_ms)
+    hedged = engine.query(feats[11])
+    faults.clear_slow(primary_key)
+    want = engine.replicas[0].neighbors(feats[11])
+    if engine.hedged < 1 or not _same_answer(hedged, want):
+        raise AssertionError("the straggler was not hedged to the replica")
+    faults.kill(primary_key)
+    if not _same_answer(engine.query(feats[11]), want) or \
+            engine.failovers < 1:
+        raise AssertionError("the dead primary did not fail over")
+    feed(engine, [next(stream) for _ in range(3)])
+    if engine.primary.applied_seq != engine.seq - 3:
+        raise AssertionError("the dead primary applied a batch")
+    faults.revive(primary_key)
+    engine.query(feats[11])
+    ev = engine.obs.events.last("catch_up")
+    if (engine.primary.applied_seq != engine.seq or ev is None
+            or ev["batches"] != 3 or ev["rebootstrapped"]):
+        raise AssertionError("catch-up did not replay the log suffix")
+    if not _same_index(torch, engine.gus, engine.replicas[0]):
+        raise AssertionError("the caught-up primary differs from the "
+                             "replica")
+    out.update(hedges=engine.hedged, failovers=engine.failovers,
+               catchups=engine.obs.registry.get(
+                   "engine_catchups_total").value,
+               serving_p50_ms=warm["p50_ms"], serving_p99_ms=warm["p99_ms"],
+               serving_n=warm["n"])
+    print("[serve] hedge to the replica, fail-over, catch-up of 3 batches; "
+          + json.dumps({k: out[k] for k in (
+              "hedges", "failovers", "catchups", "serving_p50_ms",
+              "serving_p99_ms")}))
+
+    # 3. snapshot, 4 more batches, recovery twice
+    engine.snapshot()
+    feed(engine, [next(stream) for _ in range(4)])
+    engine.flush()
+    live = engine.gus
+
+    def fresh():
+        return DynamicGUS(live.spec, BUCKETS, live.scorer_params, live.cfg,
+                          device=dev)
+
+    t0 = time.perf_counter()
+    rec = engine.recover(fresh())
+    torch.cuda.synchronize()
+    out["recovery_s"] = time.perf_counter() - t0
+    rec2 = engine.recover(fresh())
+    want_store = live.store.snapshot_state()
+    got_store = rec.gus.store.snapshot_state()
+    if not np.array_equal(got_store["ids"], want_store["ids"]) or not all(
+            np.array_equal(got_store["features"][k], v)
+            for k, v in want_store["features"].items()):
+        raise AssertionError("the recovered store differs from the live one")
+    if not _same_index(torch, rec.gus, rec2.gus) or not _same_answer(
+            rec.gus._index_neighbors_of_ids(qids, 10),
+            rec2.gus._index_neighbors_of_ids(qids, 10)):
+        raise AssertionError("two recoveries from one snapshot differ")
+    del rec2
+    rq = np.random.default_rng(1).choice(live.store.ids(), 64,
+                                         replace=False)
+    exact = _brute_oracle(torch, live, rq)
+    out.update(recall_live=_recall(live, rq, exact),
+               recall_recovered=_recall(rec.gus, rq, exact))
+    print(f"[serve] recovered in {out['recovery_s']:.1f} s (restore, "
+          f"retrain, replay of 4 batches); store equal to the live one; a "
+          f"second recovery equal bit for bit; recall@10 "
+          f"{out['recall_recovered']:.4f} vs live {out['recall_live']:.4f}")
+    if abs(out["recall_recovered"] - out["recall_live"]) > 0.02:
+        raise AssertionError("recovered recall differs by more than 0.02")
+    del rec
+    torch.cuda.empty_cache()
+
+    # 4. the maintenance plane: phase 4's graph restored, staleness bound 2
+    graph_gus, gstream = graph
+    snap = graph_gus.snapshot_state()
+    cfg = dataclasses.replace(graph_gus.cfg, maintenance=MaintenanceConfig(
+        staleness_bound=2))
+    plane = DynamicGUS(graph_gus.spec, BUCKETS, graph_gus.scorer_params, cfg,
+                       device=dev)
+    t0 = time.perf_counter()
+    plane.restore_state(snap)
+    torch.cuda.synchronize()
+    out["graph_restore_s"] = time.perf_counter() - t0
+    del snap
+    gpipe = MutationPipeline(plane)
+    submit_ms, lags = [], []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        gpipe.submit(next(gstream))
+        submit_ms.append((time.perf_counter() - t0) * 1e3)
+        lags.append(gpipe.worker.lag())
+        if lags[-1] > 2:
+            raise AssertionError(f"plane lag {lags[-1]} > 2")
+    gpipe.flush()
+    view = plane.graph.view()
+    if (view.seq != plane.seq_applied or view.slot_of != plane.graph.slot_of
+            or not torch.equal(view.nbr_slots, plane.graph.nbr_slots)
+            or not torch.equal(view.nbr_w, plane.graph.nbr_w)):
+        raise AssertionError("the published view differs from the graph")
+    _check_symmetric(plane.graph)
+    gdesc = gpipe.describe()
+    tick = plane.graph_timer.summary()
+    out["plane"] = dict(
+        bound=2, window=gpipe.window_size(), windows=gpipe.windows,
+        max_lag=max(lags), ticks=gdesc["maintenance"]["ticks"],
+        handoff_p50_ms=gdesc["handoff"]["p50_ms"],
+        handoff_p99_ms=gdesc["handoff"]["p99_ms"],
+        tick_p50_ms=gpipe.obs.registry.get(
+            "maintenance_tick_ms").summary()["p50_ms"],
+        graph_tick_p50_ms=tick["p50_ms"],
+        submit_p50_ms=float(np.percentile(submit_ms, 50)),
+        submit_p99_ms=float(np.percentile(submit_ms, 99)),
+        restore_s=out.pop("graph_restore_s"))
+    print("[serve] maintenance plane: lag <= 2 after every hand-off, the "
+          "view equals the graph after flush, symmetric; "
+          + json.dumps(out["plane"]))
+    del plane, gpipe
+    torch.cuda.empty_cache()
+
+    # 5. the front-end: about 3 queries to 1 mutation, queues small enough
+    # to shed
+    fcfg = FrontendConfig(query_queue=8, mutate_queue=2, query_dispatch=4,
+                          mutate_dispatch=1)
+    fe = Frontend(engine, fcfg)
+    rng = np.random.default_rng(5)
+    issued = {"query": 0, "mutate": 0}
+    accepted, terminal = [], []
+    while sum(issued.values()) < 200:
+        op = rng.integers(5)
+        if op == 4:
+            terminal += fe.step()
+        else:
+            kind = "mutate" if op == 3 else "query"
+            r = (fe.submit_mutation(next(stream)) if kind == "mutate"
+                 else fe.submit_query(stream.query_features(1), k=10))
+            issued[kind] += 1
+            if r.status == "accepted":
+                accepted.append(r.rid)
+            elif not r.terminal:
+                raise AssertionError(f"request {r.rid}: {r.status}")
+        if (fe.queue_depth("query") > fcfg.query_queue
+                or fe.queue_depth("mutate") > fcfg.mutate_queue):
+            raise AssertionError("a front-end queue passed its bound")
+    terminal += fe.drain()
+    done = [r.rid for r in terminal if r.status in ("ok", "error")]
+    if sorted(done) != sorted(accepted):
+        raise AssertionError("an accepted request got no single answer")
+    reg = fe.obs.registry
+    for kind in ("query", "mutate"):
+        if (fe.accepted[kind] + fe.shed[kind] != issued[kind]
+                or reg.get(f"frontend_completed_{kind}_total").value
+                + (fe.errors if kind == "query" else 0)
+                != fe.accepted[kind]):
+            raise AssertionError(f"front-end {kind} counts do not "
+                                 "reconcile")
+    shed = fe.shed["query"] + fe.shed["mutate"]
+    if not shed or (reg.get("frontend_shed_capacity_total").value
+                    + reg.get("frontend_shed_backpressure_total").value
+                    != shed):
+        raise AssertionError("front-end sheds do not reconcile")
+    fdesc = fe.describe()
+    out["frontend"] = dict(
+        issued=issued, accepted=fdesc["accepted"], shed=fdesc["shed"],
+        completed=fdesc["completed"], errors=fdesc["errors"],
+        steps=fdesc["steps"], high_water=fdesc["queue_high_water"],
+        query_p50_ms=fdesc["query_latency"]["p50_ms"],
+        query_p99_ms=fdesc["query_latency"]["p99_ms"],
+        mutate_p50_ms=fdesc["mutate_latency"]["p50_ms"])
+    print("[frontend] queues within bounds, every accepted request "
+          "answered once, the registry reconciles; "
+          + json.dumps(out["frontend"]))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    recording.close()
+    out.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=counts)
+    print(f"[serve] peak {out['peak_mem_gb']:.2f} GB; launches "
+          + json.dumps(counts) + "; shapes recorded: " + json.dumps(
+              {name: len(keys) for name, keys in calls.items()}))
+    _require_launched(counts, ("fused_query", "sparse_rescore_topk",
+                               "pair_score", "topk_select"),
+                      "the serving phase")
+    del engine
+    torch.cuda.empty_cache()
+    out["calls"] = calls
+    return out
 
 
 # ---------------------------------------------------------------- phase 5m
@@ -1044,7 +1507,8 @@ def _record_calls(owner, name: str, key, into: set):
         setattr(owner, name, orig)
 
 
-def _two_stage_key(gus, features, k, exclude_ids=None):
+def _two_stage_key(gus, features, k, exclude_ids=None, emb=None,
+                   buckets=None):
     """(spec, query rows, r_max, K) of a two_stage_neighbors call: the
     union is the dense search's k (+1 with exclusions) and sparse_k."""
     rows = len(next(iter(features.values())))
@@ -1056,6 +1520,28 @@ def _two_stage_key(gus, features, k, exclude_ids=None):
 def _brute_key(index, emb, k):
     """(queries, K, slots, k) of a BruteIndex.search call."""
     return (*emb.indices.shape, index.capacity, min(k, index.capacity))
+
+
+def _fq_key(lut, codes, ids, k, *, valid=None, bias=None, quantized=False):
+    """(B, N, M, C, k, int8) of an ops.pq_score_dedup_topk call."""
+    return (*codes.shape, lut.shape[2], k, quantized)
+
+
+def _rescore_key(q_idx, q_val, flat_slots, short_pos, short_scores, sp_idx,
+                 sp_val, k):
+    """(B, N, r, capacity, Kq, Kd, k) of an ops.sparse_rescore_topk call."""
+    return (*flat_slots.shape, short_pos.shape[1], sp_idx.shape[0],
+            q_idx.shape[1], sp_idx.shape[1], k)
+
+
+def _pair_key(params, q_fields, c_fields, layout, group):
+    """(layout, P, group) of an ops.pair_score call."""
+    return (layout, c_fields[0].shape[0], group)
+
+
+def _topk_key(scores, k):
+    """(B, N, k) of an ops.topk_select call."""
+    return (*scores.shape, k)
 
 
 def run_multimodal_path(torch, n_points: int, dev) -> tuple[dict, dict]:
@@ -1235,7 +1721,7 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     print(_card_line())
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     logs = _build.build_all()
     print(f"[build] {len(logs)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -1249,9 +1735,15 @@ def main() -> int:
     main_path, shapes, ctx = run_main_path(torch, OGB_ARXIV_NODES, dev)
     configs = run_index_configs(torch, ctx)
     graph, graph_shapes = run_graph_path(torch, dev, ctx)
+    graph_engine = ctx.pop("graph")
     del ctx
+    serving = run_serving_path(torch, OGB_ARXIV_NODES, dev, graph_engine)
+    del graph_engine
     multimodal, mm_shapes = run_multimodal_path(torch, OGB_ARXIV_NODES, dev)
     shapes.update(mm_shapes)
+    shapes["serve_calls"] = serving.pop("calls")
+    shapes["brute_calls"] = sorted(set(shapes["brute_calls"])
+                                   | shapes["serve_calls"].pop("brute"))
     shapes.update(topk_merge=graph_shapes["merge"],
                   topk_read=graph_shapes["read"],
                   rescore_graph=graph_shapes["rescore"],
@@ -1261,7 +1753,8 @@ def main() -> int:
     path_counts = {"main": main_path["launches"],
                    "configs": configs["launches"],
                    "graph": graph["launches"],
-                   "multimodal": multimodal["launches"]}
+                   "multimodal": multimodal["launches"],
+                   "serve": serving["launches"]}
     kernels = []
     for name, (source, replaces, path) in SOURCES.items():
         # topk_select's line carries the merge shape, the larger of its two
@@ -1273,6 +1766,7 @@ def main() -> int:
             launches=launches, launches_in=path,
             launches_graph=path_counts["graph"][name],
             launches_multimodal=path_counts["multimodal"][name],
+            launches_serve=path_counts["serve"][name],
             max_abs_err=rep["max_abs_err"], ms=rep["ms"],
             device_ms=rep["device_ms"], plain_ms=rep["plain_ms"],
             bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
@@ -1282,6 +1776,8 @@ def main() -> int:
                   "sparse_dot_batched rescore shape",
                   "sparse_rescore_topk multimodal", "pair_score multimodal"):
         print(f"[kernels] {extra}: " + json.dumps(report[extra]))
+    print(f"[smoke] every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,12 @@ the shared-db ``sparse_dot`` with the tombstones masked to -inf in the
 same launch, then ``topk_select`` in ``lax.top_k``'s order. Layout:
 power-of-two capacity device slabs plus a host id->slot map; inserts
 scatter rows into free slots, deletes tombstone the validity mask.
+
+The write barrier is the batch's own CUDA event: ``begin_upsert`` records
+one after its slab writes and returns it, ``finish_upsert`` waits on it
+(``None`` on the CPU, where the writes are done on return). It does not
+wait for work queued after the event; engines that share the card's
+current stream still wait for each other's work queued before it.
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ import torch
 from repro_torch.core.types import PAD_INDEX, SparseBatch
 from repro_torch.kernels import ops
 from repro_torch.kernels.topk_select import topk_select
-from repro_torch.utils.device import resolve
+from repro_torch.utils.device import record_writes, resolve
 
 
 class BruteIndex:
@@ -96,12 +102,12 @@ class BruteIndex:
         self.db_idx[sl] = emb.indices
         self.db_val[sl] = emb.values
         self.valid[sl] = True
-        return None
+        return record_writes(self.device)
 
     def finish_upsert(self, pending=None) -> None:
-        """Barrier: wait for the device writes."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Barrier: wait for this batch's device writes (its event)."""
+        if pending is not None:
+            pending.synchronize()
 
     def delete(self, ids) -> int:
         """Tombstone rows (paper §3.3.2). Returns #actually deleted."""
@@ -116,6 +122,16 @@ class BruteIndex:
             return 0
         self.valid[torch.as_tensor(slots, device=self.device)] = False
         return len(slots)
+
+    # --------------------------------------------------------- persistence
+
+    def snapshot_state(self) -> dict:
+        """Nothing beyond the corpus: the exact index rebuilds from the
+        feature store on recovery with no routing state to carry."""
+        return {}
+
+    def restore_state(self, state: dict) -> None:
+        pass
 
     # -------------------------------------------------------------- queries
 

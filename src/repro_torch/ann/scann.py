@@ -32,7 +32,7 @@ from repro_torch.ann.sparse import count_sketch
 from repro_torch.core.types import PAD_INDEX, SparseBatch
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import topk_ref
-from repro_torch.utils.device import resolve
+from repro_torch.utils.device import record_writes, resolve
 
 
 # queries per _query_step call (see ScannIndex.search)
@@ -109,6 +109,11 @@ def _query_step(q_idx, q_val, q_sketch, centroids, books, members,
 
 class ScannIndex:
     """Dynamic quantized index over sparse embeddings."""
+
+    # updates re-route free-list slots, so fusing them into a window
+    # changes slab layout (and PQ-tie ordering at the shortlist cut);
+    # serve.pipeline closes the fuse window before updates of live ids
+    FUSED_UPDATES_EXACT = False
 
     def __init__(self, k_dims: int, cfg: ScannConfig, device=None):
         self.k_dims = k_dims
@@ -289,13 +294,14 @@ class ScannIndex:
             aslots, dtype=torch.int32, device=dev)
         self.codes_list[rows_t, cols_t] = codes_all
         self.valid_list[rows_t, cols_t] = True
-        return None
+        return record_writes(dev)
 
     def finish_upsert(self, pending=None) -> None:
-        """Barrier: wait for the device writes (the acknowledgement of a
+        """Barrier: wait for this batch's device writes, the event
+        ``begin_upsert`` recorded after them (the acknowledgement of a
         mutation RPC means they are done)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        if pending is not None:
+            pending.synchronize()
 
     def delete(self, ids) -> int:
         rows, cols = [], []
@@ -317,6 +323,16 @@ class ScannIndex:
             self.valid_list[torch.as_tensor(rows, device=dev),
                             torch.as_tensor(cols, device=dev)] = False
         return n_del
+
+    # --------------------------------------------------------- persistence
+
+    def snapshot_state(self) -> dict:
+        """Nothing beyond the corpus: partitions and codebooks retrain from
+        the feature store on recovery with no routing state to carry."""
+        return {}
+
+    def restore_state(self, state: dict) -> None:
+        pass
 
     # ------------------------------------------------------------- queries
 

@@ -25,6 +25,10 @@ builds the port's store at that state, so a test can continue one stream
 from one adjacency in both packages. ``multimodal_state`` does the same
 for the reference's ``MultiModalStore.snapshot_state()``: it gives the
 state the port's ``MultiModalStore.restore_state`` takes.
+``engine_snapshot`` converts a whole ``DynamicGUS.snapshot_state()`` of
+the reference (the engine's snapshot of record) into the port's, so a port
+engine restores from it; like the port's own snapshots it holds host
+arrays only, and ``restore_state`` puts them on the engine's device.
 """
 from __future__ import annotations
 
@@ -64,12 +68,11 @@ def scorer_params(arrays: dict, device=None) -> dict:
     return {k: _t(v, np.float32, device) for k, v in arrays.items()}
 
 
-def multimodal_state(state: dict, device=None) -> dict:
+def multimodal_state(state: dict) -> dict:
     """The reference's ``MultiModalStore.snapshot_state()`` (numpy arrays,
     its routing tables as ``(sorted_ids, weights, default_weight)`` and
     ``sorted_ids``) as the port's ``restore_state`` takes it: private
-    copies of the host arrays and the routing tables built on
-    ``device``."""
+    numpy copies, bucket ids of the tables as int64."""
     ids, weights, default = state["idf"]
     return dict(
         state,
@@ -83,9 +86,9 @@ def multimodal_state(state: dict, device=None) -> dict:
         emb_idx=[np.array(r, np.uint32) for r in state["emb_idx"]],
         emb_val=[np.array(r, np.float32) for r in state["emb_val"]],
         sketch=[np.array(r, np.float32) for r in state["sketch"]],
-        idf=idf_table({"sorted_ids": ids, "weights": weights,
-                       "default_weight": default}, device),
-        filter=filter_table({"sorted_ids": state["filter"]}, device))
+        idf=(np.array(ids, np.int64), np.array(weights, np.float32),
+             np.array(default, np.float32)),
+        filter=np.array(state["filter"], np.int64))
 
 
 def load_bootstrapped(gus, state: dict, ids: np.ndarray, features: dict) -> None:
@@ -116,18 +119,44 @@ def load_bootstrapped(gus, state: dict, ids: np.ndarray, features: dict) -> None
     if gus.multimodal is not None:
         bucket_ids, valid = gus.embedder.buckets(features)
         gus.multimodal.rebuild(np.asarray(ids), emb, bucket_ids, valid)
-    gus.seed_graph(ids)
+    gus._start_graph(ids, build_graph=True)
 
 
-def graph_state(state: dict, device=None) -> DynamicGraphStore:
-    """A port ``DynamicGraphStore`` restored from the reference's
-    ``snapshot_state()``; its ``GraphConfig`` is read field by field."""
+def graph_snapshot(state: dict) -> dict:
+    """The reference's ``DynamicGraphStore.snapshot_state()`` with its
+    ``GraphConfig`` read field by field into the port's: the state the
+    port's ``restore_state`` takes (the arrays stay numpy)."""
     ref = state["cfg"]
     maint = MaintenanceConfig(**{f.name: getattr(ref.maintenance, f.name)
                                  for f in dataclasses.fields(
                                      MaintenanceConfig)})
     cfg = GraphConfig(k=ref.k, width=ref.width, capacity=ref.capacity,
                       probe=ref.probe, maintenance=maint)
-    store = DynamicGraphStore(cfg, device)
-    store.restore_state(dict(state, cfg=cfg))
+    return dict(state, cfg=cfg)
+
+
+def graph_state(state: dict, device=None) -> DynamicGraphStore:
+    """A port ``DynamicGraphStore`` restored from the reference's
+    ``snapshot_state()``."""
+    snap = graph_snapshot(state)
+    store = DynamicGraphStore(snap["cfg"], device)
+    store.restore_state(snap)
     return store
+
+
+def engine_snapshot(ref_state: dict) -> dict:
+    """The reference's ``DynamicGUS.snapshot_state()`` as the port's
+    ``DynamicGUS.restore_state`` takes it: the store's numpy features
+    unchanged, the index's routing state (empty for brute and scann), the
+    graph through ``graph_snapshot`` and the multi-modal plane through
+    ``multimodal_state``. Host arrays only."""
+    graph = ref_state.get("graph")
+    mm = ref_state.get("multimodal")
+    return {
+        "store": {"ids": np.array(ref_state["store"]["ids"], np.int64),
+                  "features": {k: np.array(v) for k, v in
+                               ref_state["store"]["features"].items()}},
+        "index": dict(ref_state.get("index") or {}),
+        "graph": graph_snapshot(graph) if graph is not None else None,
+        "multimodal": multimodal_state(mm) if mm is not None else None,
+    }

@@ -1,18 +1,22 @@
 """Dynamic GUS (port of ``repro/core/gus.py``, paper §3): Embedding
 Generator + ScaNN-style index + Similarity Scorer behind the two RPC
-surfaces, mutations and neighborhoods, plus the offline bootstrap and the
-maintained graph (``GusConfig.graph``): every mutation RPC updates the
-graph, and ``neighbors_of_ids`` at k <= the graph's k serves straight
-from its rows.
+surfaces, mutations and neighborhoods, plus the offline bootstrap, the
+periodic reload, and the maintained graph (``GusConfig.graph``): every
+mutation RPC updates the graph, and ``neighbors_of_ids`` at k <= the
+graph's k serves straight from its rows.
 
-Backends ``"scann"`` and the exact ``"brute"``, and the multi-modal
-scoring plane (``GusConfig.multimodal``: ``repro_torch.multimodal``); the
-sharded backend, the serving plane's pipeline and maintenance worker, and
-the engine's periodic reload, snapshot and restore are not ported. The
-neighborhood RPC's pair scores go through the scorer kernel on the card.
-Per-RPC wall-clock timers mirror the paper's Figs. 9-10; results are
-copied to the host inside the timed block, so each sample covers the
-device work; graph maintenance is billed to ``graph_timer``.
+Backends ``"scann"`` and the exact ``"brute"``, the multi-modal scoring
+plane (``GusConfig.multimodal``: ``repro_torch.multimodal``) and the
+maintenance knobs (``GusConfig.maintenance``). The write path is split at
+the encode/apply boundary (``StagedMutation``) that
+``serve.pipeline.MutationPipeline`` double-buffers, and
+``snapshot_state`` / ``restore_state`` compose each subsystem's own
+(host arrays only) for ``serve.engine``'s snapshot and recovery. The
+sharded backend is not ported. The neighborhood RPC's pair scores go
+through the scorer kernel on the card. Per-RPC wall-clock timers mirror
+the paper's Figs. 9-10; results are copied to the host inside the timed
+block, so each sample covers the device work; graph maintenance is billed
+to ``graph_timer``.
 """
 from __future__ import annotations
 
@@ -39,7 +43,10 @@ from repro_torch.utils.timing import Timer
 
 @dataclasses.dataclass
 class StagedMutation:
-    """A mutation batch split at the encode/apply boundary."""
+    """A mutation batch split at the encode/apply boundary (the unit the
+    pipeline double-buffers). ``encode_mutation`` fills everything but
+    ``pending``; ``apply_mutation`` issues the device writes and parks the
+    index's barrier handle (a CUDA event on the card) in ``pending``."""
     n: int                                  # points acknowledged
     dels: np.ndarray | None                 # ids to tombstone
     up_ids: np.ndarray | None               # ids to insert/update
@@ -48,7 +55,7 @@ class StagedMutation:
     index_staged: object | None             # backend encode artifacts
     buckets: tuple | None = None            # (bucket_ids, valid) np arrays,
                                             # staged when multimodal is on
-    pending: object | None = None           # in-flight device handle
+    pending: object | None = None           # the writes' CUDA event
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,9 +65,12 @@ class GusConfig:
     filter_percent: float = 0.0  # Filter-P: % of most popular buckets dropped
     backend: str = "scann"       # "scann" | "brute"
     scann: ScannConfig = ScannConfig()
-    # maintained-graph layer (repro_torch.graph): None disables maintenance;
-    # its `maintenance.staleness_bound > 0` serves published versions
+    # maintained-graph layer (repro_torch.graph): None disables maintenance
     graph: GraphConfig | None = None
+    # canonical home of the maintenance knobs: when set, it overrides
+    # GraphConfig.maintenance; `staleness_bound > 0` serves published
+    # graph versions and activates the concurrent maintenance plane
+    maintenance: MaintenanceConfig | None = None
     # multi-modal scoring plane (repro_torch.multimodal): None keeps the
     # dense embed -> search -> score path bitwise unchanged
     multimodal: MultiModalConfig | None = None
@@ -92,6 +102,8 @@ class FeatureStore:
             self._rows.pop(pid, None)
 
     def clear(self) -> None:
+        """Drop every row (a stale replica re-bootstrapping from a
+        snapshot must not keep features the snapshot already dropped)."""
         self._rows.clear()
 
     def ids(self) -> np.ndarray:
@@ -111,6 +123,23 @@ class FeatureStore:
                     out[k][j] = v
         return {k: v.reshape(ids.shape + v.shape[1:]) for k, v in out.items()}
 
+    def __len__(self):
+        return len(self._rows)
+
+    def __contains__(self, pid) -> bool:
+        return int(pid) in self._rows
+
+    # --------------------------------------------------------- persistence
+
+    def snapshot_state(self) -> dict:
+        ids = self.ids()
+        return {"ids": ids, "features": self.gather(ids)}
+
+    def restore_state(self, state: dict) -> None:
+        self.clear()
+        if len(state["ids"]):
+            self.put(state["ids"], state["features"])
+
 
 class DynamicGUS:
     """The Dynamic Grale Using ScaNN engine, on one device."""
@@ -120,9 +149,16 @@ class DynamicGUS:
                  device=None):
         self.device = resolve(device)
         self.spec = spec
+        # GusConfig.maintenance is canonical: push it down into the graph's
+        # config so every layer sees one set of knobs
+        if cfg.maintenance is not None and cfg.graph is not None:
+            cfg = dataclasses.replace(cfg, graph=dataclasses.replace(
+                cfg.graph, maintenance=cfg.maintenance))
         self.cfg = cfg
-        self.maintenance = (cfg.graph.maintenance if cfg.graph is not None
-                            else MaintenanceConfig())
+        self.maintenance = (
+            cfg.maintenance
+            or (cfg.graph.maintenance if cfg.graph is not None else None)
+            or MaintenanceConfig())
         self.embedder = EmbeddingGenerator.create(spec, bucket_cfg,
                                                   self.device)
         self.scorer_params = {k: v.to(self.device)
@@ -143,13 +179,14 @@ class DynamicGUS:
 
     # ----------------------------------------------------- offline (§4.3)
 
-    def bootstrap(self, ids: np.ndarray, features: Mapping[str, np.ndarray]
-                  ) -> None:
+    def bootstrap(self, ids: np.ndarray, features: Mapping[str, np.ndarray],
+                  build_graph: bool = True) -> None:
         """Offline preprocessing: compute IDF/filter tables from the initial
         corpus, (re)build the index, and load all points. The multi-modal
         plane (if configured) is seeded next, then the maintained graph
         (if configured) from full-corpus neighborhoods in chunks of 256
-        ids, then its repair queue is drained."""
+        ids, then its repair queue is drained; pass ``build_graph=False``
+        when restoring the graph from a snapshot."""
         bucket_ids, valid = self.embedder.buckets(features)
         bucket_ids = bucket_ids.cpu().numpy()
         valid = valid.cpu().numpy()
@@ -165,13 +202,16 @@ class DynamicGUS:
         if self.multimodal is not None:
             # before the graph: its candidate stage feeds graph seeding
             self.multimodal.rebuild(ids, emb, bucket_ids, valid)
-        self.seed_graph(ids)
+        self._start_graph(ids, build_graph)
 
-    def seed_graph(self, ids: np.ndarray) -> None:
-        """Start a fresh maintained graph over the loaded corpus ``ids``:
-        their neighborhoods in chunks of 256, then a repair flush."""
-        if self.graph is not None:
-            self.graph = DynamicGraphStore(self.cfg.graph, self.device)
+    def _start_graph(self, ids: np.ndarray, build_graph: bool) -> None:
+        """``bootstrap``'s graph step: a fresh maintained graph over the
+        loaded corpus ``ids``, seeded (when ``build_graph``) from their
+        neighborhoods in chunks of 256, then a repair flush."""
+        if self.graph is None:
+            return
+        self.graph = DynamicGraphStore(self.cfg.graph, self.device)
+        if build_graph:
             with self.graph_timer:
                 self.graph.ensure_ids(np.asarray(ids))
                 for lo in range(0, len(ids), 256):
@@ -179,8 +219,30 @@ class DynamicGUS:
                     self.graph.upsert(chunk, self._index_neighbors_of_ids(
                         chunk, self.graph.cfg.probe_k(), timed=False))
                 self.flush_graph_repair(limit=len(ids))
-            if self.maintenance.staleness_bound > 0:
-                self.graph.publish(seq=self.seq_applied)
+        if self.maintenance.staleness_bound > 0:
+            self.graph.publish(seq=self.seq_applied)
+
+    def periodic_reload(self) -> None:
+        """Recompute IDF/filter from the live corpus and retrain the index
+        (the paper's periodic consistency refresh)."""
+        ids = self.store.ids()
+        if ids.size == 0:
+            return
+        feats = self.store.gather(ids)
+        bucket_ids, valid = self.embedder.buckets(feats)
+        bucket_ids = bucket_ids.cpu().numpy()
+        valid = valid.cpu().numpy()
+        self.embedder = self.embedder.reload(
+            idf=idf_mod.build_idf_table(bucket_ids, valid, ids.size,
+                                        self.cfg.idf_size, self.device),
+            filter_table=idf_mod.build_filter_table(
+                bucket_ids, valid, self.cfg.filter_percent, self.device))
+        # the reloaded tables change the embeddings, so the index retrains
+        # (scann) or reloads (brute) from the live corpus
+        emb = self.embedder(feats)
+        self.index.build(ids, emb)
+        if self.multimodal is not None:
+            self.multimodal.rebuild(ids, emb, bucket_ids, valid)
 
     # ------------------------------------------------------ mutation RPCs
 
@@ -251,15 +313,27 @@ class DynamicGUS:
         if staged.up_ids is not None:
             self.index.finish_upsert(staged.pending)
 
-    def graph_apply(self, staged: StagedMutation) -> None:
-        """Maintained-graph update for an applied batch."""
+    def graph_apply(self, staged: StagedMutation,
+                    reuse_emb: bool = False) -> None:
+        """Maintained-graph update for an applied batch. ``reuse_emb=True``
+        (the pipelined path) feeds the staged embeddings (and buckets)
+        straight into the probe query instead of re-gathering and
+        re-embedding from the store: the same result bit for bit (the
+        store holds the same feature values), one embed less a batch."""
         if self.graph is None:
             return
         if staged.dels is not None:
             self.graph.delete(staged.dels)
         if staged.up_ids is not None:
-            res = self._index_neighbors_of_ids(
-                staged.up_ids, self.graph.cfg.probe_k(), timed=False)
+            probe_k = self.graph.cfg.probe_k()
+            if reuse_emb:
+                res = self._neighbors_impl(staged.feats, probe_k,
+                                           exclude_ids=staged.up_ids,
+                                           emb=staged.emb,
+                                           buckets=staged.buckets)
+            else:
+                res = self._index_neighbors_of_ids(staged.up_ids, probe_k,
+                                                   timed=False)
             self.graph.upsert(staged.up_ids, res)
 
     def flush_graph_repair(self, limit: int | None = None) -> int:
@@ -300,11 +374,14 @@ class DynamicGUS:
             return True
         return False
 
-    def _neighbors_impl(self, features, k, exclude_ids) -> NeighborResult:
+    def _neighbors_impl(self, features, k, exclude_ids,
+                        emb=None, buckets=None) -> NeighborResult:
         k = k or self.cfg.scann_nn
         if self.multimodal is not None:
-            return two_stage_neighbors(self, features, k, exclude_ids)
-        emb = self.embedder(features)
+            return two_stage_neighbors(self, features, k, exclude_ids,
+                                       emb=emb, buckets=buckets)
+        if emb is None:
+            emb = self.embedder(features)
         ids, dists = self.index.search(emb, k + (exclude_ids is not None))
         if exclude_ids is not None:
             ids, dists = _drop_self(ids, dists, np.asarray(exclude_ids), k)
@@ -352,6 +429,41 @@ class DynamicGUS:
         if timed:
             return self.neighbors(feats, k, exclude_ids=ids)
         return self._neighbors_impl(feats, k, exclude_ids=ids)
+
+    # --------------------------------------------------------- persistence
+
+    def snapshot_state(self) -> dict:
+        """Composed snapshot, host arrays only: the feature store (the
+        corpus of record), the index's routing state, the full graph state
+        and the multi-modal plane, each from the subsystem's own
+        ``snapshot_state``."""
+        return {
+            "store": self.store.snapshot_state(),
+            "index": self.index.snapshot_state(),
+            "graph": (self.graph.snapshot_state()
+                      if self.graph is not None else None),
+            "multimodal": (self.multimodal.snapshot_state()
+                           if self.multimodal is not None else None),
+        }
+
+    def restore_state(self, state: dict) -> None:
+        """Inverse composition. The index's routing state installs before
+        ``bootstrap`` rebuilds it, and the graph restores after the corpus
+        exists (a snapshotted graph skips the bootstrap re-seed)."""
+        self.store.clear()
+        self.index.restore_state(state.get("index") or {})
+        graph_state = state.get("graph")
+        st = state["store"]
+        self.bootstrap(st["ids"], st["features"],
+                       build_graph=graph_state is None)
+        if self.graph is not None and graph_state is not None:
+            self.graph.restore_state(graph_state)
+        mm_state = state.get("multimodal")
+        if self.multimodal is not None and mm_state is not None:
+            # overwrite bootstrap's re-seed: posting-list membership
+            # depends on insertion order (capped lists), so the restored
+            # plane must be the snapshotted one, not a rebuild
+            self.multimodal.restore_state(mm_state)
 
 
 def _drop_self(ids, dists, self_ids, k):

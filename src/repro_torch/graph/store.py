@@ -47,6 +47,7 @@ from repro_torch.core.maintenance import MaintenanceConfig
 from repro_torch.core.types import NeighborResult
 from repro_torch.graph.cc import DEAD_LABEL, propagate_labels
 from repro_torch.kernels import ops
+from repro_torch.utils import pow2_pad
 from repro_torch.utils.device import resolve
 
 # Rows per merge call and candidates per row and round (bigger groups run
@@ -55,14 +56,6 @@ from repro_torch.utils.device import resolve
 _MAX_ROWS = 1024
 _MAX_CANDS = 64
 NEG_INF = float("-inf")
-
-
-def pow2_pad(n: int, cap: int | None = None) -> int:
-    """Smallest power of two >= n (optionally clamped to ``cap``)."""
-    p = 1
-    while p < n:
-        p *= 2
-    return p if cap is None else min(p, cap)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -421,6 +414,10 @@ class DynamicGraphStore:
             if pid >= 0:                       # slot may have been recycled
                 out.append(pid)
         return np.asarray(out, np.int64)
+
+    def repair_backlog(self) -> int:
+        """Rows awaiting a repair re-query (the pipeline's queue depth)."""
+        return len(self._repair)
 
     def _push_edges(self, rows: np.ndarray, nbrs: np.ndarray,
                     ws: np.ndarray) -> None:

@@ -29,17 +29,22 @@ from repro_torch.core.types import NeighborResult
 from repro_torch.kernels import ops
 
 
-def two_stage_neighbors(gus, features, k: int,
-                        exclude_ids=None) -> NeighborResult:
+def two_stage_neighbors(gus, features, k: int, exclude_ids=None,
+                        emb=None, buckets=None) -> NeighborResult:
     """Candidate union + learned re-score for a ``DynamicGUS`` with a
-    configured multi-modal plane."""
+    configured multi-modal plane. ``emb`` / ``buckets`` take the staged
+    encode artifacts (the pipelined graph tick): both are pure functions of
+    ``features``, so passing them is a pure reuse."""
     mm = gus.multimodal
-    emb = gus.embedder(features)
-    b_ids, b_valid = gus.embedder.buckets(features)
+    if emb is None:
+        emb = gus.embedder(features)
+    if buckets is None:
+        b_ids, b_valid = gus.embedder.buckets(features)
+        buckets = (b_ids.cpu().numpy(), b_valid.cpu().numpy())
     dense_ids, _ = gus.index.search(emb, k + (exclude_ids is not None))
     dense_ids = np.asarray(dense_ids)
-    sparse_ids = mm.candidates(b_ids.cpu().numpy(), b_valid.cpu().numpy(),
-                               emb, exclude_ids=exclude_ids)
+    sparse_ids = mm.candidates(buckets[0], buckets[1], emb,
+                               exclude_ids=exclude_ids)
     n_rows = dense_ids.shape[0]
     r_max = dense_ids.shape[1] + sparse_ids.shape[1]
     cand = np.full((n_rows, r_max), -1, np.int64)

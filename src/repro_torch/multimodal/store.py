@@ -25,11 +25,12 @@ updated at the point's upsert time with the routing tables current then;
 a ``reload()`` refreshes the tables for queries and future upserts but
 does not re-sketch resident points.
 
-``snapshot_state`` gives host data in the reference's format, except that
-the routing tables are the port's ``IdfTable`` / ``FilterTable`` on the
-CPU; ``restore_state`` takes that (``convert.multimodal_state`` makes it
-from the reference's snapshot), so a restored store answers
-``candidates`` identically without replaying the reload schedule.
+``snapshot_state`` gives numpy host data in the reference's format (the
+routing tables as ``(sorted_ids, weights, default_weight)`` and
+``sorted_ids``, ids as int64); ``restore_state`` takes that
+(``convert.multimodal_state`` makes it from the reference's snapshot), so
+a restored store answers ``candidates`` identically without replaying the
+reload schedule.
 """
 from __future__ import annotations
 
@@ -67,11 +68,18 @@ class MultiModalStore:
         self._emb_val: dict[int, np.ndarray] = {}
         self._sketch: dict[int, np.ndarray] = {}
         self._emb_k = 0
+        # lifetime counts survive telemetry rebinds (transfer on bind)
         self.reloads = 0
         self.sparse_candidates = 0
         self.rescored_pairs = 0
-        # the store's instruments, on a telemetry plane of its own
+        # the store's instruments, on a telemetry plane of its own until an
+        # engine binds its shared one
         self.obs = Telemetry()
+        self._bind_instruments()
+
+    # ----------------------------------------------------------- telemetry
+
+    def _bind_instruments(self) -> None:
         reg = self.obs.registry
         self._c_reloads = reg.counter(
             "multimodal_reloads_total", "routing-table reloads materialized")
@@ -87,9 +95,16 @@ class MultiModalStore:
             "multimodal_buckets", "distinct buckets with posting lists")
         self._h_rescore = reg.histogram(
             "multimodal_rescore_ms", "learned re-score stage per query batch")
+        self._c_reloads.inc(self.reloads)
+        self._c_sparse.inc(self.sparse_candidates)
+        self._c_rescored.inc(self.rescored_pairs)
         self._set_gauges()
 
-    # ----------------------------------------------------------- telemetry
+    def bind_telemetry(self, telemetry: Telemetry) -> None:
+        """Join a shared telemetry plane (``GusEngine`` binds its own);
+        lifetime counts transfer over."""
+        self.obs = telemetry
+        self._bind_instruments()
 
     def _set_gauges(self) -> None:
         self._g_points.set(len(self._emb_idx))
@@ -263,10 +278,12 @@ class MultiModalStore:
             "sketch": [self._sketch[p].copy() for p in pids],
             "emb_k": self._emb_k,
             "reloads": self.reloads,
-            "idf": IdfTable(self.idf.sorted_ids.cpu(),
-                            self.idf.weights.cpu(),
-                            self.idf.default_weight.cpu()),
-            "filter": FilterTable(self.filter.sorted_ids.cpu()),
+            # host arrays only, in the reference's layout:
+            # (sorted_ids, weights, default_weight) and sorted_ids
+            "idf": (self.idf.sorted_ids.cpu().numpy(),
+                    self.idf.weights.cpu().numpy(),
+                    self.idf.default_weight.cpu().numpy()),
+            "filter": self.filter.sorted_ids.cpu().numpy(),
         }
 
     def restore_state(self, state: dict) -> None:
@@ -286,11 +303,15 @@ class MultiModalStore:
                         for p, row in zip(pids, state["sketch"])}
         self._emb_k = int(state["emb_k"])
         self.reloads = int(state["reloads"])
-        idf, flt = state["idf"], state["filter"]
+        ids, weights, default = state["idf"]
         dev = self.device
-        self.idf = IdfTable(idf.sorted_ids.to(dev), idf.weights.to(dev),
-                            idf.default_weight.to(dev))
-        self.filter = FilterTable(flt.sorted_ids.to(dev))
+
+        def table(a, dtype):
+            return torch.as_tensor(np.array(a, dtype), device=dev)
+
+        self.idf = IdfTable(table(ids, np.int64), table(weights, np.float32),
+                            table(default, np.float32))
+        self.filter = FilterTable(table(state["filter"], np.int64))
         self._filtered = set(self.filter.sorted_ids.cpu().tolist())
         self._set_gauges()
 

@@ -1,4 +1,5 @@
-"""Device selection for the port's entry points: the card by default."""
+"""Device selection for the port's entry points (the card by default) and
+the write barrier's event."""
 from __future__ import annotations
 
 import torch
@@ -14,3 +15,17 @@ def resolve(device=None) -> torch.device:
                 "port on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def record_writes(device: torch.device):
+    """A CUDA event recorded on ``device``'s current stream after the
+    caller's writes: the handle an index's ``finish_upsert`` waits on (a
+    batch's own barrier, not a whole-device synchronise: it waits for
+    everything queued on that stream up to the event, and for nothing
+    queued after it). ``None`` on the CPU, where the writes are done when
+    the call returns."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event

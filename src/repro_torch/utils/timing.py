@@ -23,6 +23,10 @@ class Timer:
         self.samples_ms.append((time.perf_counter() - self._t0) * 1e3)
         return False
 
+    def record(self, seconds: float) -> None:
+        """Add a sample measured elsewhere (the pipeline's stage times)."""
+        self.samples_ms.append(seconds * 1e3)
+
     def summary(self) -> dict:
         return percentiles(self.samples_ms)
 

@@ -234,7 +234,7 @@ def test_snapshot_and_reference_snapshot_restore(world):
     own.restore_state(tg.multimodal.snapshot_state())
     ref = MultiModalStore(cfg, device="cpu")
     ref.restore_state(convert.multimodal_state(
-        jg.multimodal.snapshot_state(), "cpu"))
+        jg.multimodal.snapshot_state()))
     b_ids, b_valid = (t.numpy() for t in tg.embedder.buckets(q))
     emb = tg.embedder(q)
     for store in (tg.multimodal, own, ref):

@@ -47,6 +47,20 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    symmetric, after ``flush``; 200 requests (3 queries to 1 mutation)
    through ``Frontend`` with queues small enough to shed: bounds held,
    every accepted request answered once, the registry reconciled;
+6s. the sharded backend (run after phase 6): ``launch/serve.py``'s
+   ``build_engine("arxiv", 169,343, backend="sharded", shards=4)``, four
+   index shards on the one card (664 partitions, 166 a shard, every local
+   partition probed: a shard's shortlist scans 166 x slab candidates), the
+   main path's traffic (set-up RPCs timed apart, 20 batches of 64, a 16-id
+   RPC after every other one), recall@10 on 64 live ids against the brute
+   oracle and the same-cluster rate; ``compact()`` mid-stream with those
+   64 neighborhoods bit for bit unchanged; ``resplit(1.0)`` moving points
+   with every live id kept and recall within 0.02; on the same slabs
+   ``fused=False`` == fused bit for bit, ``pq_int8=True``'s recall, and
+   the "hier" merge on a 2x2 grid equal to the flat merge up to ties
+   (counted); it records the shape of every fused shortlist, rescore,
+   pair scoring, unfused pq-score and top-k and brute search it makes,
+   and phase 5 checks the kernels there;
 5m. the multi-modal plane: (a) ``products-multimodal``, an
    ogbn-products-like corpus (dense 100, a co-purchase set of 16) at
    169,343 points, 60% bootstrapped, with launch/serve.py's buckets and
@@ -73,17 +87,21 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    makes, and phase 5 checks sparse_dot_batched, pair_score, the masked
    sparse_dot and topk_select at each of them; phase 6 records the shape
    of every fused shortlist, rescore, pair scoring, top-k and brute
-   search it makes, and phase 5 checks those kernels at each of them;
+   search it makes, and phase 5 checks those kernels at each of them, as
+   it does at phase 6s's (the fused shortlist, the rescore and the pair
+   scoring of its 16-id RPC timed beside their bounds: the ``sharded``
+   rows);
 7. print one JSON line with each kernel's numbers (with its launches on
-   each path, ``launches_serve`` the serving phase's), then the result
-   line.
+   each path, ``launches_serve`` the serving phase's and
+   ``launches_sharded`` the sharded phase's), then the result line.
 
-Phases 2-4, 6 and 5m each zero the kernel launch counts just before they
-start and read them just after; every kernel a phase runs must have
+Phases 2-4, 6, 6s and 5m each zero the kernel launch counts just before
+they start and read them just after; every kernel a phase runs must have
 launched in it. The index paths reach the exact rescore through
 ``sparse_rescore_topk`` and pair scoring through ``pair_score``, so
 phases 2-4 and 6 must not launch the standalone ``sparse_dot_batched`` or
-``scorer_mlp``; the multi-modal phase runs ``sparse_dot_batched`` itself
+``scorer_mlp`` (nor must phase 6s); the multi-modal phase runs
+``sparse_dot_batched`` itself
 and must not launch ``scorer_mlp``. ``scorer_mlp`` and ``pq_score``
 (shared codes) have no caller on a path, so their launches are counted
 around one call each in phase 5. Phase 5 also holds the top-k sizes past
@@ -175,6 +193,23 @@ def _max_abs_err(got, want) -> float:
 
 # ---------------------------------------------------------------- phase 5
 
+def _fq_row(torch, args, k: int, err: float) -> dict:
+    """The f32 fused shortlist's report row on ``args`` (``FQ_ORDER``):
+    kernel, device and plain times beside its bound."""
+    from repro_torch.kernels import fused_query
+    b, n, m = args[1].shape
+    c = args[0].shape[2]
+    # lut f32, per candidate: m code bytes, i32 id, bool valid, f32 bias;
+    # out: f32 + i32 per selected entry
+    bound, by = _bound_ms(b * m * c * 4 + b * n * (m + 4 + 1 + 4) + b * k * 8,
+                          b * n * (m + 1) + b * n)
+    return dict(shape=f"B={b} N={n} M={m} C={c} k={k}", max_abs_err=err,
+                **_timed(torch,
+                         lambda: fused_query.fused_query_kernel(*args, k),
+                         lambda: fused_query.fused_query_plain(*args, k)),
+                bound_ms=bound, bound_by=by)
+
+
 def check_kernels(torch, dev, shapes: dict) -> dict:
     """Phase 5: every kernel against its plain version on the card, at the
     paths' shapes (``shapes``); the fused shortlist (both instances) also
@@ -220,21 +255,8 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
         print(f"[kernels] fused_query {name}: bitwise equal")
         fq_args[name] = (args, k, _max_abs_err(got[0], want[0]))
     for name in ("main", "B=256"):
-        args, k, err = fq_args[name]
-        b, n, m = args[1].shape
-        c = args[0].shape[2]
-        # lut f32, per candidate: m code bytes, i32 id, bool valid, f32
-        # bias; out: f32 + i32 per selected entry
-        bound, by = _bound_ms(
-            b * m * c * 4 + b * n * (m + 4 + 1 + 4) + b * k * 8,
-            b * n * (m + 1) + b * n)
         report["fused_query" if name == "main" else
-               f"fused_query {name}"] = dict(
-            shape=f"B={b} N={n} M={m} C={c} k={k}", max_abs_err=err,
-            **_timed(torch,
-                     lambda: fused_query.fused_query_kernel(*args, k),
-                     lambda: fused_query.fused_query_plain(*args, k)),
-            bound_ms=bound, bound_by=by)
+               f"fused_query {name}"] = _fq_row(torch, *fq_args[name])
     main_k = fq_args["main"][1]
 
     # sparse_dot (both forms), bitwise at unit and IDF-like weights (the
@@ -621,10 +643,7 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
               f"max_abs_err {_max_abs_err(got, want)!r}")
         return q, c, layout, weights, got, want
 
-    for name, spec, (p, group) in (
-            ("pair_score", shapes["spec"], shapes["pair"]),
-            ("pair_score graph", shapes["spec"], shapes["pair_graph"]),
-            ("pair_score multimodal", shapes["mm_spec"], shapes["mm_pair"])):
+    def pair_row(spec, p, group):
         q, c, layout, weights, got, want = check_pairs(spec, p, group)
         row_bytes = sum(4 * d for d in layout.dims)
         f = layout.n_features
@@ -634,7 +653,7 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
             (p // group + p) * row_bytes + 4 * sum(w.numel() for w in weights)
             + p * 4,
             p * (per_pair + 2 * f * h + 2 * h * h + 2 * h + 3 * h + 4))
-        report[name] = dict(
+        return dict(
             shape=f"P={p} group={group} dims={layout.dims} F={f} H={h}",
             max_abs_err=_max_abs_err(got, want),
             **_timed(torch, lambda: scorer_mlp.pair_score(q, c, layout, group,
@@ -642,10 +661,18 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
                      lambda: scorer_mlp.pair_score_plain(q, c, layout, group,
                                                          *weights)),
             bound_ms=bound, bound_by=by)
+
+    for name, spec, (p, group) in (
+            ("pair_score", shapes["spec"], shapes["pair"]),
+            ("pair_score graph", shapes["spec"], shapes["pair_graph"]),
+            ("pair_score multimodal", shapes["mm_spec"], shapes["mm_pair"])):
+        report[name] = pair_row(spec, p, group)
     for spec, rows, r_max, _ in shapes["mm_calls"]:
         check_pairs(spec, rows * r_max, r_max)
     check_serving_shapes(torch, rng, on_card, shapes, check_rescore,
                          check_pairs)
+    report.update(check_sharded_shapes(torch, rng, on_card, shapes,
+                                       check_rescore, rescore_row, pair_row))
     return report
 
 
@@ -1487,6 +1514,256 @@ def run_serving_path(torch, n_points: int, dev, graph: tuple) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 6s
+
+def _pq_key(lut, codes, *, quantized=False):
+    """(B, N, M, C, int8) of an ops.pq_scores call."""
+    return (*codes.shape, lut.shape[2], quantized)
+
+
+def _tie_diffs(want, got) -> int:
+    """Positions where two answers' ids differ: each must sit in a group
+    of equal distance (a tie) and the distances must agree bit for bit.
+    Returns how many positions differ."""
+    (w_ids, w_d), (g_ids, g_d) = want, got
+    if not np.array_equal(w_d.view(np.int32), g_d.view(np.int32)):
+        raise AssertionError("the hier merge's distances differ")
+    diff = 0
+    for r in range(w_ids.shape[0]):
+        for d in np.unique(w_d[r]):
+            sel = w_d[r] == d
+            if set(w_ids[r][sel]) != set(g_ids[r][sel]):
+                raise AssertionError(f"the hier merge's ids differ outside "
+                                     f"a tie (row {r})")
+        diff += int((w_ids[r] != g_ids[r]).sum())
+    return diff
+
+
+def run_sharded_path(torch, n_points: int, dev) -> dict:
+    """Phase 6s: the sharded backend through ``launch/serve.py::
+    build_engine("arxiv", n_points, backend="sharded", shards=4)``, every
+    shard on the one card. (a) bootstrap, one set-up RPC of each kind, 20
+    default-mix batches with a 16-id neighborhood RPC after every other
+    one; recall@10 of 64 live ids against the brute oracle, same-cluster
+    rate; (b) ``compact()`` mid-stream: those 64 neighborhoods bit for
+    bit the same; (c) ``resplit(1.0)`` moves points, every live id keeps
+    its rows, recall within 0.02; (d) on the same slabs, ``fused=False``
+    == fused bit for bit, ``pq_int8=True``'s recall, and the "hier" merge
+    on a 2x2 grid with the flat merge's answer up to ties. Returns the
+    metrics, with ``calls``: every shape the phase gave the fused
+    shortlist, the rescore, the pair scorer, the unfused shortlist's
+    pq-score and top-k, and the brute search, for phase 5."""
+    from repro_torch.ann import sharded as sharded_module
+    from repro_torch.ann.brute import BruteIndex
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_gus_mesh
+    from repro_torch.launch.serve import build_engine
+
+    calls = {name: set() for name in ("fq", "rescore", "pair", "topk", "pq",
+                                      "brute")}
+    recording = contextlib.ExitStack()
+    for owner, name, key, into in (
+            (ops, "pq_score_dedup_topk", _fq_key, calls["fq"]),
+            (ops, "sparse_rescore_topk", _rescore_key, calls["rescore"]),
+            (ops, "pair_score", _pair_key, calls["pair"]),
+            (ops, "pq_scores", _pq_key, calls["pq"]),
+            (sharded_module, "topk_select", _topk_key, calls["topk"]),
+            (BruteIndex, "search", _brute_key, calls["brute"])):
+        recording.enter_context(_record_calls(owner, name, key, into))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = t0 = time.perf_counter()
+    engine, stream, cluster = build_engine("arxiv", n_points,
+                                           backend="sharded", shards=4,
+                                           device=dev)
+    gus = engine.gus
+    index = gus.index
+    torch.cuda.synchronize()
+    out = dict(n_points=n_points, shards=index.cfg.n_shards,
+               partitions=index.cfg.n_partitions, slab=index.slab,
+               candidates_per_shard=index.cfg.n_partitions
+               // index.cfg.n_shards * index.slab,
+               devices=sorted({str(d) for d in index.mesh.devices}),
+               build_s=time.perf_counter() - t0)
+    print(f"[sharded] engine built in {out['build_s']:.1f} s: "
+          + json.dumps(index.occupancy()))
+
+    # (a) the traffic of the main path
+    gus.mutate(next(stream))
+    gus.neighbors_of_ids(stream.query_ids(16))
+    out.update(first_mutation_ms=gus.mutation_timer.samples_ms.pop(),
+               first_neighbors_ms=gus.query_timer.samples_ms.pop())
+    same = []
+    for i, batch in zip(range(20), stream):
+        gus.mutate(batch)
+        if i % 2 == 1:
+            qids = stream.query_ids(16)
+            res = gus.neighbors_of_ids(qids)
+            if res.ids.shape != (16, 10) or not np.isfinite(
+                    res.weights[res.ids >= 0]).all():
+                raise AssertionError("sharded RPC returned bad rows")
+            same += [cluster[n] == cluster[q] for r, q in enumerate(qids)
+                     for n in res.ids[r] if 0 <= n < len(cluster)]
+    mut, qry = gus.mutation_timer.summary(), gus.query_timer.summary()
+    out.update(mutation_p50_ms=mut["p50_ms"], mutation_p99_ms=mut["p99_ms"],
+               neighbors_p50_ms=qry["p50_ms"], neighbors_p99_ms=qry["p99_ms"],
+               same_cluster=float(np.mean(same)))
+    qids = np.random.default_rng(1).choice(gus.store.ids(), 64,
+                                           replace=False)
+    exact = _brute_oracle(torch, gus, qids)
+    out["recall_at_10"] = _recall(gus, qids, exact)
+
+    # (b) compaction mid-stream is invisible to the 64 neighborhoods
+    before = gus.neighbors_of_ids(qids)
+    t0 = time.perf_counter()
+    out["compaction"] = index.compact()
+    out["compact_ms"] = (time.perf_counter() - t0) * 1e3
+    if not _same_answer(before, gus.neighbors_of_ids(qids)):
+        raise AssertionError("compaction changed a neighborhood")
+
+    # (c) a forced re-split
+    imbalance = index.occupancy()["shard_imbalance"]
+    t0 = time.perf_counter()
+    moved = index.resplit(imbalance=1.0)
+    out.update(resplit_moved=moved, resplit_s=time.perf_counter() - t0,
+               imbalance_before=imbalance,
+               imbalance_after=index.occupancy()["shard_imbalance"])
+    if moved < 1:
+        raise AssertionError("resplit(1.0) moved no point")
+    if set(index.row_of) != set(gus.store.ids().tolist()):
+        raise AssertionError("a live id lost its rows in the re-split")
+    out["recall_after_resplit"] = _recall(gus, qids, exact)
+    if abs(out["recall_after_resplit"] - out["recall_at_10"]) > 0.02:
+        raise AssertionError(f"recall moved by the re-split: "
+                             f"{out['recall_at_10']} -> "
+                             f"{out['recall_after_resplit']}")
+
+    # (d) the other shortlist forms and the hier merge, same slabs
+    emb = gus.embedder(gus.store.gather(qids))
+    base = index.cfg
+    found = {}
+    for name, cfg in (("fused", base),
+                      ("unfused", dataclasses.replace(base, fused=False)),
+                      ("int8", dataclasses.replace(base, pq_int8=True)),
+                      ("hier", dataclasses.replace(base, merge="hier"))):
+        clone = copy.copy(index)           # shares the shard tensors
+        clone.cfg = cfg
+        clone._query_steps = {}
+        clone.query_load = index.query_load.copy()
+        if name == "hier":
+            clone.mesh = make_gus_mesh(4, two_level=True, device=dev)
+        found[name] = clone.search(emb, 10)
+    for want, got in zip(found["fused"], found["unfused"]):
+        if not np.array_equal(want.view(np.int32), got.view(np.int32)):
+            raise AssertionError("fused=False differs from the fused "
+                                 "shortlist")
+    out["hier_tie_diffs"] = _tie_diffs(found["fused"], found["hier"])
+    out["recall_by_form"] = {n: _recall_at_10(exact, f)
+                             for n, f in found.items()}
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    recording.close()
+    out.update(phase_s=time.perf_counter() - t_phase,
+               occupancy=index.occupancy(),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=counts)
+    out["profile"] = profile_rpcs(torch, gus, stream, label="sharded ")
+    print("[sharded] fused=False == fused bitwise; compaction bit-identical; "
+          + json.dumps({k: v for k, v in out.items() if k != "profile"})
+          + "; shapes recorded: " + json.dumps(
+              {name: len(keys) for name, keys in calls.items()}))
+    _require_launched(counts, ("fused_query", "fused_query_int8",
+                               "sparse_rescore_topk", "pair_score",
+                               "pq_score_batched", "topk_select"),
+                      "the sharded backend")
+    if not out["same_cluster"] > 0.7:
+        raise AssertionError(f"sharded same-cluster rate "
+                             f"{out['same_cluster']} <= 0.7")
+    del engine, gus, index, found
+    torch.cuda.empty_cache()
+    out["calls"] = calls
+    return out
+
+
+def check_sharded_shapes(torch, rng, on_card, shapes: dict, check_rescore,
+                         rescore_row, pair_row) -> dict:
+    """Phase 5, the sharded phase's shapes (``shapes["sharded_calls"]``;
+    its brute searches are among ``shapes["brute_calls"]``): the fused
+    shortlist (both tables) of every batch it ran over a shard's
+    N = C_loc x slab candidates, the rescore and the pair scoring after
+    each, and the unfused shortlist's pq-score and top-k (lax.top_k's
+    order); bitwise but for pair_score (rtol 1e-5, atol 1e-6). The
+    16-query RPC's shapes are timed: the report's ``sharded`` rows."""
+    from repro_torch.core.scorer import pair_layout
+    from repro_torch.kernels import (cases, fused_query, ops, pq_score,
+                                     topk_select)
+
+    calls = shapes["sharded_calls"]
+    report = {}
+    for b, n, m, c, k, int8 in sorted(calls["fq"]):
+        inputs = cases.fused_query_inputs(rng, b, n, m, c, n // 2, 0.1)
+        args = on_card([inputs[a] for a in cases.FQ_ORDER])
+        table = ops.quantize_lut(args[0]) if int8 else (args[0],)
+        kernel, plain = ((fused_query.fused_query_kernel_int8,
+                          fused_query.fused_query_int8_plain) if int8 else
+                         (fused_query.fused_query_kernel,
+                          fused_query.fused_query_plain))
+        got = kernel(*table, *args[1:], k)
+        want = plain(*table, *args[1:], k)
+        torch.cuda.synchronize()
+        if not _bitwise(torch, got, want):
+            raise AssertionError(f"fused_query differs from its plain "
+                                 f"version at the sharded phase's B={b} "
+                                 f"N={n} k={k} int8={int8}")
+        print(f"[kernels] fused_query sharded B={b} N={n} M={m} C={c} "
+              f"k={k} int8={int8}: bitwise equal")
+        if b == 16 and not int8:
+            report["fused_query sharded"] = _fq_row(
+                torch, args, k, _max_abs_err(got[0], want[0]))
+        del args, got, want
+    for b, n, r, cap, kq, kd, k in sorted(calls["rescore"]):
+        if kq != kd:
+            raise AssertionError(f"the sharded phase's rescore had Kq={kq} "
+                                 f"against Kd={kd}: no case for it")
+        for unit in (True, False):
+            res = check_rescore(b, n, r, cap, kd, k, unit)
+        if b == 16:
+            report["sparse_rescore_topk sharded"] = rescore_row(*res, k)
+        del res
+    specs = {pair_layout(shapes["spec"])[1]: shapes["spec"]}
+    for layout, p, group in sorted(calls["pair"], key=lambda c: c[1:]):
+        if layout not in specs:
+            raise AssertionError(f"the sharded phase scored pairs of an "
+                                 f"unknown layout {layout}")
+        row = pair_row(specs[layout], p, group)
+        if p == 16 * group:
+            report["pair_score sharded"] = row
+    for b, n, m, c, int8 in sorted(calls["pq"]):
+        inputs = cases.fused_query_inputs(rng, b, n, m, c, 2, 0.0)
+        lut, codes = on_card([inputs["lut"], inputs["codes"]])
+        got = pq_score.pq_score_batched(lut, codes)
+        want = pq_score.pq_score_plain(lut, codes)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"pq_score_batched differs at the sharded "
+                                 f"phase's B={b} N={n}")
+        print(f"[kernels] pq_score_batched sharded B={b} N={n}: bitwise "
+              f"equal")
+        del lut, codes, got, want
+    for b, n, k in sorted(calls["topk"]):
+        scores = on_card([cases.topk_inputs(rng, b, n)])[0]
+        got = topk_select.topk_select(scores, k, signed_zeros=True)
+        want = topk_select.topk_select_plain(scores, k, signed_zeros=True)
+        torch.cuda.synchronize()
+        if not _bitwise(torch, got, want):
+            raise AssertionError(f"topk_select differs at the sharded "
+                                 f"phase's B={b} N={n} k={k}")
+        print(f"[kernels] topk_select sharded B={b} N={n} k={k} (lax.top_k "
+              f"order): bitwise equal")
+    return report
+
+
 # ---------------------------------------------------------------- phase 5m
 
 @contextlib.contextmanager
@@ -1539,8 +1816,9 @@ def _pair_key(params, q_fields, c_fields, layout, group):
     return (layout, c_fields[0].shape[0], group)
 
 
-def _topk_key(scores, k):
-    """(B, N, k) of an ops.topk_select call."""
+def _topk_key(scores, k, signed_zeros=False):
+    """(B, N, k) of a top-k call (ops.topk_select, or the sharded
+    shortlist's in lax.top_k's order)."""
     return (*scores.shape, k)
 
 
@@ -1739,11 +2017,14 @@ def main() -> int:
     del ctx
     serving = run_serving_path(torch, OGB_ARXIV_NODES, dev, graph_engine)
     del graph_engine
+    sharded = run_sharded_path(torch, OGB_ARXIV_NODES, dev)
     multimodal, mm_shapes = run_multimodal_path(torch, OGB_ARXIV_NODES, dev)
     shapes.update(mm_shapes)
     shapes["serve_calls"] = serving.pop("calls")
+    shapes["sharded_calls"] = sharded.pop("calls")
     shapes["brute_calls"] = sorted(set(shapes["brute_calls"])
-                                   | shapes["serve_calls"].pop("brute"))
+                                   | shapes["serve_calls"].pop("brute")
+                                   | shapes["sharded_calls"].pop("brute"))
     shapes.update(topk_merge=graph_shapes["merge"],
                   topk_read=graph_shapes["read"],
                   rescore_graph=graph_shapes["rescore"],
@@ -1754,7 +2035,8 @@ def main() -> int:
                    "configs": configs["launches"],
                    "graph": graph["launches"],
                    "multimodal": multimodal["launches"],
-                   "serve": serving["launches"]}
+                   "serve": serving["launches"],
+                   "sharded": sharded["launches"]}
     kernels = []
     for name, (source, replaces, path) in SOURCES.items():
         # topk_select's line carries the merge shape, the larger of its two
@@ -1767,6 +2049,7 @@ def main() -> int:
             launches_graph=path_counts["graph"][name],
             launches_multimodal=path_counts["multimodal"][name],
             launches_serve=path_counts["serve"][name],
+            launches_sharded=path_counts["sharded"][name],
             max_abs_err=rep["max_abs_err"], ms=rep["ms"],
             device_ms=rep["device_ms"], plain_ms=rep["plain_ms"],
             bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
@@ -1774,7 +2057,9 @@ def main() -> int:
     for extra in ("topk_select read", "fused_query B=256",
                   "sparse_rescore_topk graph", "pair_score graph",
                   "sparse_dot_batched rescore shape",
-                  "sparse_rescore_topk multimodal", "pair_score multimodal"):
+                  "sparse_rescore_topk multimodal", "pair_score multimodal",
+                  "fused_query sharded", "sparse_rescore_topk sharded",
+                  "pair_score sharded"):
         print(f"[kernels] {extra}: " + json.dumps(report[extra]))
     print(f"[smoke] every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")

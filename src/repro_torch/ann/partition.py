@@ -96,6 +96,46 @@ def assign_partitions(x, centroids, eta: float = 1.0,
     return p1, soar.argmin(-1)
 
 
+def assign_block(x, centroids, soar_lambda: float = -1.0):
+    """Primary (plain L2) and SOAR secondary partition of every row of
+    ``x`` inside one block of ``centroids``: local ids (p1, p2) int64 [N],
+    ``p2 = -1`` when ``soar_lambda < 0``. The sharded mutate step
+    (``ann/sharded.py``) runs it on each shard's block and
+    ``assign_partitions_local`` on each owner's, so that on the same
+    tensors the host mirror and the device placement agree bit for bit."""
+    d2 = _pairwise_sq_dist(x, centroids)
+    p1 = d2.argmin(-1)
+    if soar_lambda < 0:
+        return p1, torch.full_like(p1, -1)
+    soar = soar_cost(x, centroids, d2, p1, soar_lambda)
+    soar[torch.arange(x.shape[0], device=x.device), p1] = float("inf")
+    return p1, soar.argmin(-1)
+
+
+def assign_partitions_local(x, centroids, owners, *, c_loc: int,
+                            soar_lambda: float = -1.0):
+    """``assign_partitions`` restricted to each point's owner block.
+
+    The sharded mutate path hash-routes every point to an owner shard that
+    holds ``c_loc`` consecutive partitions; primary and SOAR secondary are
+    chosen inside that block (write amplification stays shard-local).
+    This is the host mirror of the mutate step's assignment, the same
+    plain-L2 primary cost and SOAR secondary cost (``assign_block`` on
+    the slice ``centroids[o * c_loc:(o + 1) * c_loc]`` of each owner
+    ``o``). ``soar_lambda < 0`` disables the secondary (``p2 = -1``).
+    Returns ``(p1, p2)`` int64 [N] global ids."""
+    p1 = torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
+    p2 = torch.full_like(p1, -1)
+    for blk in range(centroids.shape[0] // c_loc):
+        lo = blk * c_loc
+        b1, b2 = assign_block(x, centroids[lo:lo + c_loc], soar_lambda)
+        mine = owners == blk
+        p1 = torch.where(mine, b1 + lo, p1)
+        if soar_lambda >= 0:
+            p2 = torch.where(mine, b2 + lo, p2)
+    return p1, p2
+
+
 def partition_scores(q: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     """Query-to-partition dot scores [B, C] (higher = search first)."""
     return q @ centroids.T

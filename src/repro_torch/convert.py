@@ -13,10 +13,12 @@ module sees only numpy arrays and plain numbers:
         "filter": {"sorted_ids": uint32 [F]},
         "scorer": {"w0": ..., "b0": ..., "w1": ..., "b1": ..., "w2": ...,
                    "b2": ...},
-        # backend "scann" only: the trained structures and the layout
-        # the reference's build chose, so slots and slabs line up
+        # backends "scann" and "sharded": the trained structures and the
+        # layout the reference's build chose, so slots and slabs line up
         "centroids": f32 [C, d], "books": f32 [M, 256, d/M],
-        "capacity": int, "slab": int,
+        "slab": int,
+        "capacity": int,          # scann only
+        "salt": int,              # sharded only: the owner-hash salt
     }
 
 ``graph_state`` takes the reference's ``DynamicGraphStore.snapshot_state()``
@@ -27,7 +29,8 @@ for the reference's ``MultiModalStore.snapshot_state()``: it gives the
 state the port's ``MultiModalStore.restore_state`` takes.
 ``engine_snapshot`` converts a whole ``DynamicGUS.snapshot_state()`` of
 the reference (the engine's snapshot of record) into the port's, so a port
-engine restores from it; like the port's own snapshots it holds host
+engine restores from it (the sharded index's salt included, so it
+re-routes as the reference does); like the port's own snapshots it holds host
 arrays only, and ``restore_state`` puts them on the engine's device.
 """
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch
 
 from repro_torch.ann.brute import BruteIndex
 from repro_torch.ann.scann import ScannIndex
+from repro_torch.ann.sharded_index import ShardedGusIndex
 from repro_torch.core.idf import FilterTable, IdfTable
 from repro_torch.core.maintenance import MaintenanceConfig
 from repro_torch.graph.store import DynamicGraphStore, GraphConfig
@@ -110,6 +114,11 @@ def load_bootstrapped(gus, state: dict, ids: np.ndarray, features: dict) -> None
             k_dims, gus.cfg.scann, state["centroids"], state["books"],
             capacity=int(state["capacity"]), slab=int(state["slab"]),
             device=dev)
+    elif gus.cfg.backend == "sharded":
+        gus.index = ShardedGusIndex.from_trained(
+            k_dims, gus.cfg.sharded, state["centroids"], state["books"],
+            slab=int(state["slab"]), device=dev)
+        gus.index.restore_state({"salt": int(state.get("salt", 3))})
     else:
         gus.index = BruteIndex(k_dims, device=dev)
     gus.store.clear()
@@ -147,16 +156,20 @@ def graph_state(state: dict, device=None) -> DynamicGraphStore:
 def engine_snapshot(ref_state: dict) -> dict:
     """The reference's ``DynamicGUS.snapshot_state()`` as the port's
     ``DynamicGUS.restore_state`` takes it: the store's numpy features
-    unchanged, the index's routing state (empty for brute and scann), the
-    graph through ``graph_snapshot`` and the multi-modal plane through
-    ``multimodal_state``. Host arrays only."""
+    unchanged, the index's routing state (the sharded index's owner-hash
+    salt; empty for brute and scann), the graph through ``graph_snapshot``
+    and the multi-modal plane through ``multimodal_state``. Host arrays
+    only."""
     graph = ref_state.get("graph")
     mm = ref_state.get("multimodal")
+    index = dict(ref_state.get("index") or {})
+    if index.get("salt") is not None:
+        index["salt"] = int(index["salt"])
     return {
         "store": {"ids": np.array(ref_state["store"]["ids"], np.int64),
                   "features": {k: np.array(v) for k, v in
                                ref_state["store"]["features"].items()}},
-        "index": dict(ref_state.get("index") or {}),
+        "index": index,
         "graph": graph_snapshot(graph) if graph is not None else None,
         "multimodal": multimodal_state(mm) if mm is not None else None,
     }

@@ -5,14 +5,16 @@ periodic reload, and the maintained graph (``GusConfig.graph``): every
 mutation RPC updates the graph, and ``neighbors_of_ids`` at k <= the
 graph's k serves straight from its rows.
 
-Backends ``"scann"`` and the exact ``"brute"``, the multi-modal scoring
-plane (``GusConfig.multimodal``: ``repro_torch.multimodal``) and the
-maintenance knobs (``GusConfig.maintenance``). The write path is split at
-the encode/apply boundary (``StagedMutation``) that
-``serve.pipeline.MutationPipeline`` double-buffers, and
-``snapshot_state`` / ``restore_state`` compose each subsystem's own
-(host arrays only) for ``serve.engine``'s snapshot and recovery. The
-sharded backend is not ported. The neighborhood RPC's pair scores go
+Backends ``"scann"``, the exact ``"brute"`` and ``"sharded"``
+(``ann/sharded_index.py``: the index sharded over ``ShardedConfig.
+n_shards`` shards, all driven from this process, with a maintained slab
+lifecycle), the multi-modal scoring plane (``GusConfig.multimodal``:
+``repro_torch.multimodal``) and the maintenance knobs
+(``GusConfig.maintenance``). The write path is split at the encode/apply
+boundary (``StagedMutation``) that ``serve.pipeline.MutationPipeline``
+double-buffers, and ``snapshot_state`` / ``restore_state`` compose each
+subsystem's own (host arrays only) for ``serve.engine``'s snapshot and
+recovery. The neighborhood RPC's pair scores go
 through the scorer kernel on the card. Per-RPC wall-clock timers mirror
 the paper's Figs. 9-10; results are copied to the host inside the timed
 block, so each sample covers the device work; graph maintenance is billed
@@ -27,6 +29,7 @@ import numpy as np
 
 from repro_torch.ann.brute import BruteIndex
 from repro_torch.ann.scann import ScannConfig, ScannIndex
+from repro_torch.ann.sharded_index import ShardedConfig, ShardedGusIndex
 from repro_torch.core import idf as idf_mod
 from repro_torch.core.buckets import BucketConfig
 from repro_torch.core.embedding import EmbeddingGenerator
@@ -63,13 +66,15 @@ class GusConfig:
     scann_nn: int = 10           # ScaNN-NN: neighbors retrieved from the index
     idf_size: int = 0            # IDF-S   : IDF table size (0 = unit weights)
     filter_percent: float = 0.0  # Filter-P: % of most popular buckets dropped
-    backend: str = "scann"       # "scann" | "brute"
+    backend: str = "scann"       # "scann" | "brute" | "sharded"
     scann: ScannConfig = ScannConfig()
+    sharded: ShardedConfig = ShardedConfig()
     # maintained-graph layer (repro_torch.graph): None disables maintenance
     graph: GraphConfig | None = None
     # canonical home of the maintenance knobs: when set, it overrides
-    # GraphConfig.maintenance; `staleness_bound > 0` serves published
-    # graph versions and activates the concurrent maintenance plane
+    # GraphConfig.maintenance and ShardedConfig.maintenance;
+    # `staleness_bound > 0` serves published graph versions and activates
+    # the concurrent maintenance plane
     maintenance: MaintenanceConfig | None = None
     # multi-modal scoring plane (repro_torch.multimodal): None keeps the
     # dense embed -> search -> score path bitwise unchanged
@@ -82,8 +87,9 @@ def make_index(k_dims: int, cfg: GusConfig, device):
         return BruteIndex(k_dims, device=device)
     if cfg.backend == "scann":
         return ScannIndex(k_dims, cfg.scann, device)
-    raise ValueError(f"unknown GUS backend {cfg.backend!r} (this port has "
-                     "'scann' and 'brute')")
+    if cfg.backend == "sharded":
+        return ShardedGusIndex(k_dims, cfg.sharded, device)
+    raise ValueError(f"unknown GUS backend {cfg.backend!r}")
 
 
 class FeatureStore:
@@ -149,15 +155,21 @@ class DynamicGUS:
                  device=None):
         self.device = resolve(device)
         self.spec = spec
-        # GusConfig.maintenance is canonical: push it down into the graph's
-        # config so every layer sees one set of knobs
-        if cfg.maintenance is not None and cfg.graph is not None:
-            cfg = dataclasses.replace(cfg, graph=dataclasses.replace(
-                cfg.graph, maintenance=cfg.maintenance))
+        # GusConfig.maintenance is canonical: push it down into the
+        # per-subsystem configs so every layer sees one set of knobs
+        if cfg.maintenance is not None:
+            sub = {"sharded": dataclasses.replace(
+                cfg.sharded, maintenance=cfg.maintenance)}
+            if cfg.graph is not None:
+                sub["graph"] = dataclasses.replace(
+                    cfg.graph, maintenance=cfg.maintenance)
+            cfg = dataclasses.replace(cfg, **sub)
         self.cfg = cfg
         self.maintenance = (
             cfg.maintenance
             or (cfg.graph.maintenance if cfg.graph is not None else None)
+            or (cfg.sharded.maintenance if cfg.backend == "sharded"
+                else None)
             or MaintenanceConfig())
         self.embedder = EmbeddingGenerator.create(spec, bucket_cfg,
                                                   self.device)

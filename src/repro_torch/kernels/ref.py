@@ -107,12 +107,22 @@ def pq_score_seq_ref(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
 def shortlist_dedup_ref(vals, idxs, ids, valid):
     """Dedup-after-cut: shortlist entry i becomes -inf iff some earlier
     entry j < i selected the same point id with both slots valid.
-    ``idxs`` are untouched so gathers stay aligned."""
+    ``idxs`` are untouched so gathers stay aligned. A stable sort by id
+    puts each id's entries together in shortlist order; an entry is a
+    duplicate when a valid entry precedes it in its group (O(k log k) a
+    row, where comparing every pair would take k^2)."""
     sid = torch.gather(ids, 1, idxs)
     sv = torch.gather(valid, 1, idxs)
-    same = (sid[:, :, None] == sid[:, None, :]) & sv[:, :, None] & sv[:, None, :]
+    order = torch.sort(sid, dim=1, stable=True).indices
+    s_id = torch.gather(sid, 1, order)
+    s_v = torch.gather(sv, 1, order).to(torch.int64)
     k = vals.shape[1]
-    ar = torch.arange(k, device=vals.device)
-    earlier = ar[None, :, None] > ar[None, None, :]
-    dup = (same & earlier).any(2)
+    pos = torch.arange(k, device=vals.device).expand_as(s_id)
+    first = torch.ones_like(s_id, dtype=torch.bool)
+    first[:, 1:] = s_id[:, 1:] != s_id[:, :-1]
+    # valid entries before each one in its row, and before its group
+    before = s_v.cumsum(1) - s_v
+    start = torch.where(first, pos, 0).cummax(1).values
+    dup_sorted = (s_v > 0) & (before > torch.gather(before, 1, start))
+    dup = torch.zeros_like(dup_sorted).scatter_(1, order, dup_sorted)
     return torch.where(dup, float("-inf"), vals)

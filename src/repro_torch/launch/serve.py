@@ -10,8 +10,9 @@ Runs on the card unless ``--device cpu`` is given. ``--metrics
 snapshot / Prometheus text / full ``GusEngine.telemetry()`` with
 lifecycle events and trace stats); ``--trace-every N`` sets the
 request-trace sampling rate. Catalog: docs/OBSERVABILITY.md. The scorer
-is the port's ``train_scorer`` from seed 0. ``--backend sharded``
-raises, as ``make_index`` does, until the sharded backend is ported.
+is the port's ``train_scorer`` from seed 0. ``--backend sharded --shards
+N`` serves from N index shards, placed as ``launch/mesh.py`` places them
+(on one card, every shard shares it; with ``--device cpu``, the CPU).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import json
 import numpy as np
 
 from repro_torch.ann.scann import ScannConfig
+from repro_torch.ann.sharded_index import ShardedConfig
 from repro_torch.core.buckets import BucketConfig
 from repro_torch.core.gus import DynamicGUS, GusConfig
 from repro_torch.core.scorer import train_scorer
@@ -36,18 +38,25 @@ BUCKETS = BucketConfig(dense_tables=8, dense_bits=10, set_tables=6,
 
 
 def gus_config(n_points: int, *, scann_nn=10, idf_size=0, filter_percent=0.0,
-               backend="scann") -> GusConfig:
-    """Serving config sized to the corpus."""
+               backend="scann", shards=1) -> GusConfig:
+    """Serving config sized to the corpus, for any backend."""
+    n_parts = max(16, n_points // 256)
     return GusConfig(
         scann_nn=scann_nn, idf_size=idf_size, filter_percent=filter_percent,
         backend=backend,
-        scann=ScannConfig(d_proj=64, n_partitions=max(16, n_points // 256),
-                          nprobe=8, reorder=max(128, scann_nn * 4)))
+        scann=ScannConfig(d_proj=64, n_partitions=n_parts,
+                          nprobe=8, reorder=max(128, scann_nn * 4)),
+        sharded=ShardedConfig(
+            n_shards=shards,
+            n_partitions=max(16, (n_parts + shards - 1) // shards * shards),
+            nprobe_local=0, reorder=max(128, scann_nn * 4),
+            kmeans_iters=8, pq_iters=4))
 
 
 def build_engine(dataset: str, n_points: int, *, scann_nn=10, idf_size=0,
-                 filter_percent=0.0, backend="scann", replicas=0, seed=0,
-                 engine_cfg: EngineConfig = EngineConfig(), device=None):
+                 filter_percent=0.0, backend="scann", shards=1, replicas=0,
+                 seed=0, engine_cfg: EngineConfig = EngineConfig(),
+                 device=None):
     """Bootstrap a full serving engine; ``replicas`` extra DynamicGUS
     instances (same corpus, same seed) back the straggler-hedging path.
     Returns (engine, stream, cluster labels)."""
@@ -58,7 +67,8 @@ def build_engine(dataset: str, n_points: int, *, scann_nn=10, idf_size=0,
     scorer, _ = train_scorer(seed, data_cfg.spec, pf, lbl, steps=300,
                              device=device)
     cfg = gus_config(n_points, scann_nn=scann_nn, idf_size=idf_size,
-                     filter_percent=filter_percent, backend=backend)
+                     filter_percent=filter_percent, backend=backend,
+                     shards=shards)
     stream = MutationStream(data_cfg, StreamConfig(seed=seed),
                             bootstrap_fraction=0.6)
     boot_ids, boot_feats = stream.bootstrap()
@@ -81,6 +91,8 @@ def main(argv=None):
     ap.add_argument("--filter-percent", type=float, default=0.0)
     ap.add_argument("--backend", choices=("scann", "brute", "sharded"),
                     default="scann")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="index shards for --backend sharded")
     ap.add_argument("--replicas", type=int, default=0,
                     help="replica fleet size backing straggler hedging")
     ap.add_argument("--pipeline", action="store_true",
@@ -103,7 +115,7 @@ def main(argv=None):
     engine, stream, cluster = build_engine(
         args.dataset, args.points, scann_nn=args.scann_nn,
         idf_size=args.idf_size, filter_percent=args.filter_percent,
-        backend=args.backend, replicas=args.replicas,
+        backend=args.backend, shards=args.shards, replicas=args.replicas,
         engine_cfg=EngineConfig(pipeline=args.pipeline), device=args.device)
     if args.trace_every is not None:
         engine.obs.tracer.sample_every = args.trace_every

@@ -11,8 +11,8 @@ events (port of ``repro/obs``, pure Python, a copy of each module).
 
 ``Telemetry`` bundles the three behind one handle. In the port the
 multi-modal store (``multimodal/store.py``) binds its instruments on one;
-the serving plane and the sharded index, when ported, share theirs the
-same way.
+the serving plane and the sharded index (``bind_telemetry``) share
+theirs the same way.
 """
 from __future__ import annotations
 

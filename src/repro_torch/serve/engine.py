@@ -91,9 +91,8 @@ class GusEngine:
         self.cfg = cfg
         self.faults = faults or FaultInjector()
         # one telemetry plane per engine, shared with the front-end, the
-        # mutation pipelines and the multi-modal store (and the sharded
-        # index, once ported) so every instrument exports through a
-        # single registry
+        # mutation pipelines, the multi-modal store and the sharded index
+        # so every instrument exports through a single registry
         self.obs = telemetry if telemetry is not None else Telemetry()
         reg = self.obs.registry
         self._c_queries = reg.counter(
@@ -135,7 +134,7 @@ class GusEngine:
                               for g in (gus, *replicas)]
         bind = getattr(gus.index, "bind_telemetry", None)
         if callable(bind):
-            bind(self.obs)           # the sharded backend, once ported
+            bind(self.obs)           # the sharded backend's instruments
         if gus.multimodal is not None:
             gus.multimodal.bind_telemetry(self.obs)
         self.mutation_log: list[MutationBatch] = []

@@ -9,8 +9,8 @@ deferred work — this module is inert.
 
 With ``staleness_bound = B > 0`` the contract relaxes from bitwise
 identity to *bounded staleness*: queries read the last **published
-snapshot** (an immutable :class:`~repro_torch.graph.store.GraphView`; the sharded backend's
-``IndexVersion`` when it is ported), which may lag the
+snapshot** (an immutable :class:`~repro_torch.graph.store.GraphView`;
+the sharded backend's ``IndexVersion``), which may lag the
 applied mutation stream by at most ``B`` batches. The pipeline then
 fuses windows even with a graph configured, and each window's graph
 work — the merge-and-re-top-k tick, back-edge purges, and the batched
@@ -30,9 +30,9 @@ version.
 Index maintenance (auto-resplit and the slab snapshot) runs **only at
 drain boundaries**: the routing salt a re-split bumps is baked into
 staged PQ encodings, so it must never land between a window's encode
-and its apply. Neither backend the port has today (brute, scann) carries
-either hook; ``_index_maintenance`` finds them by name, so the sharded
-backend plugs in without an edit here.
+and its apply. Only the sharded backend carries the hooks
+(``auto_resplit_on`` / ``auto_resplit``, ``publish``);
+``_index_maintenance`` finds them by name, so brute and scann skip it.
 
 On the card a tick's graph work runs on the same stream as the writes it
 follows; its answer reaches the host inside the probe query, so a tick's

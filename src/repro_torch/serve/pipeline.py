@@ -61,8 +61,8 @@ being exact:
 contract).** Three more rules exist only to reproduce the synchronous
 *maintenance schedule* exactly, and they are what historically capped
 pipelined throughput (the two sharded pins read the backend's
-``maintenance_pressure`` / ``auto_resplit_on`` by name and are inert
-until the sharded backend is ported):
+``maintenance_pressure`` / ``auto_resplit_on`` by name; brute and scann
+have neither):
 
 * **a maintained graph pins the window to 1**: the graph tick for batch
   *i* must observe the index exactly as of batch *i*, the same state the

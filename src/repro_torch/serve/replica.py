@@ -24,8 +24,9 @@ here are routing state, surfaced through ``describe()``, and the
 member-attributed history is the event log's (``replica_down`` /
 ``replica_up`` / ``replica_partitioned`` / ``replica_healed``,
 ``failover``, ``catch_up``). On one card every member is its own engine
-with its own device tensors; the reference's pods (disjoint device
-slices) wait for the sharded backend.
+with its own device tensors; a sharded member's shards go where
+``launch/mesh.py`` places its pod (``ShardedConfig.pod``): on one card,
+every pod's shards share it.
 """
 from __future__ import annotations
 

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from repro.ann.scann import ScannConfig as JScannConfig
+from repro.ann.sharded_index import ShardedConfig as JShardedConfig
 from repro.core import BucketConfig as JBucketConfig
 from repro.core import DynamicGUS as JDynamicGUS
 from repro.core import GusConfig as JGusConfig
@@ -22,6 +23,7 @@ from repro.graph.store import GraphConfig as JGraphConfig
 from repro.multimodal import MultiModalConfig as JMultiModalConfig
 from repro_torch import convert
 from repro_torch.ann.scann import ScannConfig
+from repro_torch.ann.sharded_index import ShardedConfig
 from repro_torch.core.buckets import BucketConfig
 from repro_torch.core.gus import DynamicGUS, GusConfig
 from repro_torch.core.maintenance import MaintenanceConfig
@@ -67,24 +69,41 @@ def port_stream(seed: int, **kw):
     return streams(seed, **kw)[1]
 
 
+# tests/test_pipeline.py's sharded backend (one shard)
+SHARDED = dict(n_shards=1, d_proj=32, n_partitions=8, nprobe_local=0,
+               reorder=512, pq_m=4, kmeans_iters=4, pq_iters=2)
+
+
 def configs(backend="brute", graph=False, bound=None, multimodal=False,
-            scann_nn=5, idf_size=0, filter_percent=0.0):
+            scann_nn=5, idf_size=0, filter_percent=0.0, sharded=None):
     """(reference GusConfig, port GusConfig) of one configuration;
-    ``bound`` sets ``GusConfig.maintenance`` (None leaves it unset)."""
+    ``bound`` sets ``GusConfig.maintenance`` (None leaves it unset);
+    ``sharded`` is the ``ShardedConfig`` fields (default ``SHARDED``), its
+    ``maintenance`` a dict of ``MaintenanceConfig`` fields."""
+    sh = dict(SHARDED if sharded is None else sharded)
+    maint = sh.pop("maintenance", None)
     kw = dict(scann_nn=scann_nn, backend=backend, idf_size=idf_size,
               filter_percent=filter_percent)
+    if maint is not None:
+        kw_j = dict(kw, sharded=JShardedConfig(
+            **sh, maintenance=JMaintenanceConfig(**maint)))
+        kw_t = dict(kw, sharded=ShardedConfig(
+            **sh, maintenance=MaintenanceConfig(**maint)))
+    else:
+        kw_j = dict(kw, sharded=JShardedConfig(**sh))
+        kw_t = dict(kw, sharded=ShardedConfig(**sh))
     jcfg = JGusConfig(
         scann=JScannConfig(**SCANN, **J_TRAIN),
         graph=JGraphConfig(**GRAPH) if graph else None,
         maintenance=(None if bound is None
                      else JMaintenanceConfig(staleness_bound=bound)),
-        multimodal=JMultiModalConfig(**MM) if multimodal else None, **kw)
+        multimodal=JMultiModalConfig(**MM) if multimodal else None, **kw_j)
     tcfg = GusConfig(
         scann=ScannConfig(**SCANN),
         graph=GraphConfig(**GRAPH) if graph else None,
         maintenance=(None if bound is None
                      else MaintenanceConfig(staleness_bound=bound)),
-        multimodal=MultiModalConfig(**MM) if multimodal else None, **kw)
+        multimodal=MultiModalConfig(**MM) if multimodal else None, **kw_t)
     return jcfg, tcfg
 
 
@@ -125,19 +144,31 @@ def port_engine(tcfg, ids, feats, jg=None, device="cpu"):
     return tg
 
 
+SHARDED_ARRAYS = ("members_idx", "members_val", "codes", "row_ids", "valid",
+                  "counts")
+
+
 def index_arrays(gus) -> dict:
     """The index's device arrays, on the host."""
+    if gus.cfg.backend == "sharded":
+        return {n: gus.index.array(n) for n in SHARDED_ARRAYS}
     names = (("db_idx", "db_val", "valid") if gus.cfg.backend == "brute"
              else ("sp_idx", "sp_val", "members", "codes_list",
                    "valid_list"))
     return {n: getattr(gus.index, n).cpu().numpy() for n in names}
 
 
+def index_map(gus) -> dict:
+    """The index's host id map (scann: slots, sharded: landing rows)."""
+    return (gus.index.row_of if gus.cfg.backend == "sharded"
+            else gus.index.slot_of)
+
+
 def assert_same_state(a, b, graph=True):
     """Two port engines hold the same state, bit for bit: store, index
     arrays and id maps, a probe of the index path, graph rows, CC."""
     assert set(a.store._rows) == set(b.store._rows)
-    assert a.index.slot_of == b.index.slot_of
+    assert index_map(a) == index_map(b)
     for name, arr in index_arrays(a).items():
         np.testing.assert_array_equal(arr, index_arrays(b)[name],
                                       err_msg=name)

@@ -24,6 +24,7 @@ from repro.data.synthetic import OGB_ARXIV_LIKE as J_ARXIV
 from repro_torch import convert
 from repro_torch.ann.brute import BruteIndex
 from repro_torch.ann.scann import ScannConfig, ScannIndex
+from repro_torch.ann.sharded_index import ShardedConfig, ShardedGusIndex
 from repro_torch.core import BucketConfig, FeatureSpec
 from repro_torch.core.buckets import make_bucket_params
 from repro_torch.core.embedding import EmbeddingGenerator
@@ -71,6 +72,10 @@ def _reference_state(jg) -> dict:
         state.update(centroids=np.asarray(jg.index.centroids),
                      books=np.asarray(jg.index.books),
                      capacity=jg.index.capacity, slab=jg.index.slab)
+    elif jg.cfg.backend == "sharded":
+        state.update(centroids=np.asarray(jg.index.state["centroids"]),
+                     books=np.asarray(jg.index.state["books"]),
+                     slab=jg.index.slab, salt=jg.index.salt)
     return state
 
 
@@ -204,6 +209,10 @@ def test_card_is_the_default_device():
         lambda: ScannIndex.from_trained(9, ScannConfig(), np.zeros((64, 64)),
                                         np.zeros((8, 256, 8))),
         lambda: BruteIndex(9),
+        lambda: ShardedGusIndex(9, ShardedConfig(n_shards=2)),
+        lambda: ShardedGusIndex.from_trained(9, ShardedConfig(),
+                                             np.zeros((16, 64)),
+                                             np.zeros((8, 256, 8)), slab=64),
         lambda: EmbeddingGenerator.create(spec, BucketConfig()),
         lambda: make_bucket_params(spec, BucketConfig()),
         lambda: build_idf_table(bid, valid, 4, 10),
@@ -216,13 +225,22 @@ def test_card_is_the_default_device():
 
 
 def test_unported_paths_raise():
-    """The sharded backend is not ported; every scann shortlist
-    configuration is (the name is kept from when two of them raised)."""
+    """Every backend and every scann shortlist configuration is ported
+    (the name is kept from when some of them raised):
+    ``GusConfig(backend="sharded")`` builds a ``ShardedGusIndex``; an
+    unknown backend still raises."""
     for cfg in (ScannConfig(fused=False), ScannConfig(pq_int8=True)):
         assert ScannIndex(9, cfg, device="cpu").cfg == cfg
+    gus = DynamicGUS(DATA.spec, BucketConfig(), {},
+                     GusConfig(backend="sharded",
+                               sharded=ShardedConfig(n_shards=2)),
+                     device="cpu")
+    assert isinstance(gus.index, ShardedGusIndex)
+    assert gus.index.cfg.n_shards == 2 and gus.index.mesh.size == 2
+    assert gus.maintenance == gus.index.cfg.maintenance
     with pytest.raises(ValueError, match="unknown GUS backend"):
         DynamicGUS(DATA.spec, BucketConfig(), {},
-                   GusConfig(backend="sharded"), device="cpu")
+                   GusConfig(backend="annoy"), device="cpu")
 
 
 _GUARD = """
@@ -255,6 +273,7 @@ def test_port_imports_no_jax_and_no_reference():
     assert len(names) >= 46
     assert {f"repro_torch.{m}" for m in (
         "graph", "graph.store", "graph.cc", "core.graph", "core.grale",
+        "ann.sharded", "ann.sharded_index", "launch.mesh",
         "core.maintenance", "kernels.topk_select", "kernels.pq_score",
         "serve", "serve.engine", "serve.faults", "serve.frontend",
         "serve.maintenance", "serve.pipeline", "serve.replica",

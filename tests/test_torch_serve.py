@@ -469,9 +469,24 @@ def test_launch_serve_runs_on_the_cpu_without_jax():
 
 
 def test_launch_serve_sharded_backend_raises():
-    from repro_torch.launch.serve import build_engine
-    with pytest.raises(ValueError, match="unknown GUS backend"):
-        build_engine("arxiv", 200, backend="sharded", device="cpu")
+    """(The name is kept from when ``--backend sharded`` raised.) The
+    launcher serves from two index shards on the CPU, with jax blocked:
+    a few batches, the probes' same-cluster lines, and the index's slab
+    occupancy in the engine's ``describe()``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-c", _LAUNCH, "--device", "cpu", "--points", "600",
+         "--mutations", "4", "--queries", "8", "--backend", "sharded",
+         "--shards", "2"],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0] == "[serve] bootstrapped 360 points"
+    assert any(line.startswith("[serve] after batch 0:") for line in lines)
+    blob = json.loads(out.stdout[out.stdout.index("\n{") + 1:])
+    assert blob["seq"] == 4 and blob["mutation_latency"]["n"] == 4
+    assert len(blob["index"]["shard_live"]) == 2
+    assert blob["index"]["aged_out"] == 0
 
 
 def test_engine_query_pads_to_a_power_of_two(world):

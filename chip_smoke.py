@@ -79,7 +79,8 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    within rtol/atol 1e-6, pair_score within rtol 1e-5 / atol 1e-6), and
    time kernel, plain
    version and, for the top-k, ``torch.topk`` with CUDA events, plus each
-   kernel's device time per call from ``torch.profiler`` (fused_query,
+   kernel's device time per call from ``torch.profiler`` (the mean over
+   the profiled calls whose device records came back whole; fused_query,
    sparse_rescore_topk and pair_score also at the graph's shapes and the
    products-multimodal RPC's; the top-k above k = 64 against the stable
    sort, with the route ``ops.topk_select`` takes there). Phase 5m
@@ -91,16 +92,30 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    it does at phase 6s's (the fused shortlist, the rescore and the pair
    scoring of its 16-id RPC timed beside their bounds: the ``sharded``
    rows);
-7. print one JSON line with each kernel's numbers (with its launches on
-   each path, ``launches_serve`` the serving phase's and
-   ``launches_sharded`` the sharded phase's), then the result line.
+7. the dry-run's GUS cells (run after phase 5): ``launch/dryrun.py``'s
+   ``run_gus_cell`` at the default, full-size cell (``gus_serve_100m``:
+   4,096 partitions x 8,192 slots, half filled, K = 16, d = 128, M = 16;
+   4,096 queries, 65,536 mutations) on the one card: the 16x16 mesh's
+   query step (flat and hier), mutate and delete steps and the 2x16x16
+   mesh's query step, each checked (the first 64 queries bit for bit the
+   same step's on CPU copies of every shard, at least 90% of the
+   distances finite and nonzero; the 65,536 mutated rows read back from
+   their reported sites, cursors moved by what each partition received,
+   no other slot changed; the delete's bits cleared exactly) and timed,
+   one ``[dryrun]`` line per record (step ms, temp_bytes, peak GB); it
+   records the fused shortlist's and the rescore's shapes, and phase 5's
+   checks run there just after it (the ``dryrun`` rows);
+8. print one JSON line with each kernel's numbers (with its launches on
+   each path, ``launches_serve`` the serving phase's,
+   ``launches_sharded`` the sharded phase's and ``launches_dryrun`` the
+   dry-run's), then the result line.
 
-Phases 2-4, 6, 6s and 5m each zero the kernel launch counts just before
-they start and read them just after; every kernel a phase runs must have
-launched in it. The index paths reach the exact rescore through
+Phases 2-4, 6, 6s, 5m and 7 each zero the kernel launch counts just
+before they start and read them just after; every kernel a phase runs
+must have launched in it. The index paths reach the exact rescore through
 ``sparse_rescore_topk`` and pair scoring through ``pair_score``, so
 phases 2-4 and 6 must not launch the standalone ``sparse_dot_batched`` or
-``scorer_mlp`` (nor must phase 6s); the multi-modal phase runs
+``scorer_mlp`` (nor must phases 6s and 7); the multi-modal phase runs
 ``sparse_dot_batched`` itself
 and must not launch ``scorer_mlp``. ``scorer_mlp`` and ``pq_score``
 (shared codes) have no caller on a path, so their launches are counted
@@ -112,9 +127,11 @@ It imports nothing of JAX and nothing of the reference package.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -127,6 +144,7 @@ SRC = Path(__file__).resolve().parent / "src"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_OPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
 WARMUP, REPS = 3, 20
+WINDOWS = 5                      # profiler windows a device time may take
 
 
 def _card_line() -> str:
@@ -150,26 +168,67 @@ def _time_ms(fn, torch) -> float:
     return start.elapsed_time(end) / REPS
 
 
-def _device_ms(fn, torch) -> float:
+# the kernel of torch.cuda._sleep, launched between profiled calls
+SEPARATOR = "spin_kernel"
+
+
+def _device_profile(fn, torch) -> tuple[float, int]:
     """Device time of one call (the sum of its kernels and copies), from
-    torch.profiler over REPS calls after a warm-up."""
+    torch.profiler after a warm-up, and the number of calls it averages.
+    In a window of REPS calls a separator kernel runs before each call
+    and after the last, so on the device's timeline the records between
+    two separators are one call's. The profiler drops a window's first
+    device records, more as the process ages (PERF.md section 7), so only
+    the calls whose records came back whole count; windows repeat, up to
+    WINDOWS, until REPS // 2 calls have, and none raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / REPS
+    whole = []
+    for _ in range(WINDOWS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                torch.cuda._sleep(1)
+                fn()
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+        whole += _whole_calls([e for e in prof.events()
+                               if e.device_type == DeviceType.CUDA])
+        if len(whole) >= REPS // 2:
+            break
+    if not whole:
+        raise AssertionError(f"torch.profiler kept no call's device records "
+                             f"in {WINDOWS} windows of {REPS}")
+    return sum(whole) / len(whole) / 1e3, len(whole)
+
+
+def _whole_calls(records) -> list:
+    """Device microseconds of each call whose records came back whole: the
+    records between two separators on the device's timeline, where their
+    count is the window's most common non-zero one ([] if none)."""
+    calls, call = [], None
+    for e in sorted(records, key=lambda e: e.time_range.start):
+        if SEPARATOR in e.name:
+            if call is not None:
+                calls.append(call)
+            call = []
+        elif call is not None:
+            call.append(e.time_range.elapsed_us())
+    counts = collections.Counter(len(c) for c in calls if c)
+    if not counts:
+        return []
+    usual = counts.most_common(1)[0][0]
+    return [sum(c) for c in calls if len(c) == usual]
 
 
 def _timed(torch, kernel, plain, **extra) -> dict:
-    """Events ms and device ms of the kernel, events ms of its plain
-    version."""
-    return dict(ms=_time_ms(kernel, torch), device_ms=_device_ms(kernel, torch),
+    """Events ms and device ms of the kernel (with the number of profiled
+    calls the device ms averages), events ms of its plain version."""
+    ms = _time_ms(kernel, torch)
+    device_ms, device_calls = _device_profile(kernel, torch)
+    return dict(ms=ms, device_ms=device_ms, device_calls=device_calls,
                 plain_ms=_time_ms(plain, torch), **extra)
 
 
@@ -208,6 +267,48 @@ def _fq_row(torch, args, k: int, err: float) -> dict:
                          lambda: fused_query.fused_query_kernel(*args, k),
                          lambda: fused_query.fused_query_plain(*args, k)),
                 bound_ms=bound, bound_by=by)
+
+
+def _check_rescore(torch, rng, on_card, b, n, r, cap, kdim, k, unit):
+    """The rescore against its plain version, bitwise, on inputs from
+    ``cases.rescore_inputs``: unit values (ties across shortlist
+    positions) or IDF-like ones. Returns (inputs, got, want)."""
+    from repro_torch.kernels import cases, ops, sparse_dot
+    case = cases.rescore_inputs(rng, b, n, r, cap, kdim, 40, unit)
+    args = on_card([case[a] for a in cases.RESCORE_ORDER])
+    got = ops.sparse_rescore_topk(*args, k)
+    want = sparse_dot.sparse_rescore_topk_plain(*args, k)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(
+            got[1].view(torch.int32), want[1].view(torch.int32))):
+        raise AssertionError(f"sparse_rescore_topk differs from its "
+                             f"plain version (B={b} N={n} r={r} "
+                             f"K={kdim} k={k} unit={unit})")
+    print(f"[kernels] sparse_rescore_topk B={b} N={n} r={r} K={kdim} "
+          f"k={k} unit={unit}: bitwise equal")
+    return args, got, want
+
+
+def _rescore_row(torch, args, got, want, k) -> dict:
+    """The rescore's report row: kernel, device and plain times beside its
+    bound."""
+    from repro_torch.kernels import ops, sparse_dot
+    # q, shortlist (position, score), the slot of each entry, the slab
+    # rows of the live entries, out (slot, dist)
+    b, kdim = args[0].shape
+    r = args[3].shape[1]
+    short_slots = torch.gather(args[2], 1, args[3].long())
+    live = int((torch.isfinite(args[4]) & (short_slots >= 0)).sum())
+    bound, by = _bound_ms(b * kdim * 8 + b * r * 8 + b * r * 4
+                          + live * kdim * 8 + b * k * 8,
+                          live * kdim * kdim + b * r)
+    return dict(
+        shape=f"B={b} N={args[2].shape[1]} r={r} K={kdim} k={k} "
+              f"cap={args[5].shape[0]}",
+        max_abs_err=_max_abs_err(got[1], want[1]),
+        **_timed(torch, lambda: ops.sparse_rescore_topk(*args, k),
+                 lambda: sparse_dot.sparse_rescore_topk_plain(*args, k)),
+        bound_ms=bound, bound_by=by)
 
 
 def check_kernels(torch, dev, shapes: dict) -> dict:
@@ -312,8 +413,9 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
     # every shape the multi-modal phase gave: sparse_dot_batched at each
     # two-stage retrieval's (rows, r_max, K) (its pair_score below), and
     # each brute search of the time-to-flag and of the serving phase's
-    # recall oracle, the masked shared sparse_dot over the index's slots and the top-k in lax.top_k's order; unit
-    # values (ties) and IDF-like ones, bitwise
+    # recall oracle, the masked shared sparse_dot over the index's slots
+    # and the top-k in lax.top_k's order; unit values (ties) and IDF-like
+    # ones, bitwise
     for _, rows, r_max, kdim in shapes["mm_calls"]:
         for unit in (True, False):
             args = on_card([*cases.sparse_rows(rng, (rows, kdim), 40, unit),
@@ -351,38 +453,8 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
     # over the index's N, reorder and capacity, and of the multi-modal
     # phase's products index (its N, capacity and K = k_max); unit values
     # (ties across shortlist positions) and IDF-like ones, bitwise
-    def check_rescore(b, n, r, cap, kdim, k, unit):
-        case = cases.rescore_inputs(rng, b, n, r, cap, kdim, 40, unit)
-        args = on_card([case[a] for a in cases.RESCORE_ORDER])
-        got = ops.sparse_rescore_topk(*args, k)
-        want = sparse_dot.sparse_rescore_topk_plain(*args, k)
-        torch.cuda.synchronize()
-        if not (torch.equal(got[0], want[0]) and torch.equal(
-                got[1].view(torch.int32), want[1].view(torch.int32))):
-            raise AssertionError(f"sparse_rescore_topk differs from its "
-                                 f"plain version (B={b} N={n} r={r} "
-                                 f"K={kdim} k={k} unit={unit})")
-        print(f"[kernels] sparse_rescore_topk B={b} N={n} r={r} K={kdim} "
-              f"k={k} unit={unit}: bitwise equal")
-        return args, got, want
-
-    def rescore_row(args, got, want, k):
-        # q, shortlist (position, score), the slot of each entry, the
-        # slab rows of the live entries, out (slot, dist)
-        b, kdim = args[0].shape
-        r = args[3].shape[1]
-        short_slots = torch.gather(args[2], 1, args[3].long())
-        live = int((torch.isfinite(args[4]) & (short_slots >= 0)).sum())
-        bound, by = _bound_ms(b * kdim * 8 + b * r * 8 + b * r * 4
-                              + live * kdim * 8 + b * k * 8,
-                              live * kdim * kdim + b * r)
-        return dict(
-            shape=f"B={b} N={args[2].shape[1]} r={r} K={kdim} k={k} "
-                  f"cap={args[5].shape[0]}",
-            max_abs_err=_max_abs_err(got[1], want[1]),
-            **_timed(torch, lambda: ops.sparse_rescore_topk(*args, k),
-                     lambda: sparse_dot.sparse_rescore_topk_plain(*args, k)),
-            bound_ms=bound, bound_by=by)
+    check_rescore = functools.partial(_check_rescore, torch, rng, on_card)
+    rescore_row = functools.partial(_rescore_row, torch)
 
     index = (shapes["fq_n"], shapes["reorder"], shapes["capacity"], kd)
     (b, k), (b_graph, k_graph) = shapes["rescore"], shapes["rescore_graph"]
@@ -542,8 +614,8 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
         bound, by = _bound_ms(b * n * 4 + b * k * 8, b * n)
         above[name] = dict(
             shape=f"B={b} N={n} k={k}", bound_ms=bound, bound_by=by,
-            device_ms=_device_ms(lambda: topk_select.topk_select(
-                scores, k, signed_zeros=True), torch),
+            device_ms=_device_profile(lambda: topk_select.topk_select(
+                scores, k, signed_zeros=True), torch)[0],
             kernel_ms=_time_ms(lambda: topk_select.topk_select(
                 scores, k, signed_zeros=True), torch),
             sort_ms=_time_ms(lambda: topk_select.topk_select_plain(
@@ -869,10 +941,10 @@ def run_main_path(torch, n_points: int, dev) -> tuple[dict, dict]:
             raise AssertionError("the brute search did not repeat")
         brute_ms.append((time.perf_counter() - t0) * 1e3)
     # device time of the search and of its scoring kernel on these rows
-    brute_dev = (_device_ms(lambda: brute.search(emb, 10), torch),
-                 _device_ms(lambda: ops.sparse_dot(
+    brute_dev = (_device_profile(lambda: brute.search(emb, 10), torch)[0],
+                 _device_profile(lambda: ops.sparse_dot(
                      emb.indices, emb.values, brute.db_idx, brute.db_val,
-                     valid=brute.valid), torch))
+                     valid=brute.valid), torch)[0])
 
     mut = gus.mutation_timer.summary()
     qry = gus.query_timer.summary()
@@ -1764,6 +1836,126 @@ def check_sharded_shapes(torch, rng, on_card, shapes: dict, check_rescore,
     return report
 
 
+# ---------------------------------------------------------------- phase 7
+
+# (multi_pod, op, merge) of each dry-run cell phase 7 runs
+DRYRUN_CELLS = ((False, "query", "flat"), (False, "query", "hier"),
+                (False, "mutate", "flat"), (False, "delete", "flat"),
+                (True, "query", "flat"))
+
+
+def _card_calls(key):
+    """``key`` of a call whose first argument (a tensor) lies on the card;
+    None for the CPU twin's calls (the dry-run's query check)."""
+    def on_card(*args, **kwargs):
+        return (key(*args, **kwargs) if args[0].device.type == "cuda"
+                else None)
+    return on_card
+
+
+def run_dryrun_path(torch, dev, runs: int = 3, **size) -> dict:
+    """Phase 7: the dry-run's GUS cells through ``launch/dryrun.py::
+    run_gus_cell`` at the default, full-size cell (4,096 partitions x
+    8,192 slots, 4,096 queries, 65,536 mutations, K = 16, M = 16) on the
+    one card: on the 16x16 mesh the query step (flat and hier), the
+    mutate and the delete step, on the 2x16x16 mesh the query step. Each
+    runs with ``check=True`` (the query's first 64 answers bit for bit
+    those of the same step on CPU copies of every shard, the mutate's
+    rows read back from their reported sites with nothing else changed,
+    the delete's bits cleared exactly), then ``runs`` timed steps; each
+    record goes to a temporary directory. ``size`` (``n_partitions``,
+    ``slab``) cuts the cell for a rehearsal on the CPU. Returns the
+    records, with
+    ``calls``: every shape the card's steps gave the fused shortlist and
+    the rescore, for phase 5."""
+    import os
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+
+    calls = {"fq": set(), "rescore": set()}
+    recording = contextlib.ExitStack()
+    for name, key, into in (
+            ("pq_score_dedup_topk", _fq_key, calls["fq"]),
+            ("sparse_rescore_topk", _rescore_key, calls["rescore"])):
+        recording.enter_context(_record_calls(ops, name, _card_calls(key),
+                                              into))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    records = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        for multi_pod, op, merge in DRYRUN_CELLS:
+            rec = dryrun.run_gus_cell(multi_pod, out_dir, op=op, merge=merge,
+                                      device=dev, runs=runs, check=True,
+                                      **size)
+            records[f"{rec['kind']}_{rec['mesh']}"] = rec
+            torch.cuda.empty_cache()
+        written = sorted(os.listdir(out_dir))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    recording.close()
+    for into in calls.values():
+        into.discard(None)
+    if written != sorted(f"{name}.json" for name in records):
+        raise AssertionError(f"the dry-run wrote {written}")
+    out = dict(records=records, phase_s=time.perf_counter() - t0,
+               launches=counts, calls=calls)
+    print("[dryrun] records: " + json.dumps(records))
+    print(f"[dryrun] phase 7 in {out['phase_s']:.1f} s; shapes recorded: "
+          + json.dumps({name: sorted(keys) for name, keys in calls.items()}))
+    _require_launched(counts, ("fused_query", "sparse_rescore_topk"),
+                      "the dry-run's cells")
+    return out
+
+
+def check_dryrun_shapes(torch, dev, calls: dict) -> dict:
+    """Phase 5 at the dry-run's shapes (``calls``, phase 7's), run after
+    phase 7: the fused shortlist (B = 4,096 queries, N = 16,384
+    candidates, M = 16, k = 200) and the rescore (r = 200, K = 16,
+    k = 100, slab rows 131,072 on the 16x16 mesh and 65,536 on the
+    2x16x16) bitwise against their plain versions, each timed beside its
+    bound: the ``dryrun`` rows."""
+    from repro_torch.kernels import cases, fused_query
+
+    def on_card(arrays):
+        return [torch.as_tensor(a).to(dev) for a in arrays]
+
+    rng = np.random.default_rng(7)
+    check_rescore = functools.partial(_check_rescore, torch, rng, on_card)
+    report = {}
+    for b, n, m, c, k, int8 in sorted(calls["fq"]):
+        if int8:
+            raise AssertionError("the dry-run's cells ran the int8 table")
+        inputs = cases.fused_query_inputs(rng, b, n, m, c, n // 2, 0.1)
+        args = on_card([inputs[a] for a in cases.FQ_ORDER])
+        del inputs
+        got = fused_query.fused_query_kernel(*args, k)
+        want = fused_query.fused_query_plain(*args, k)
+        torch.cuda.synchronize()
+        if not _bitwise(torch, got, want):
+            raise AssertionError(f"fused_query differs from its plain "
+                                 f"version at the dry-run's B={b} N={n} "
+                                 f"M={m} k={k}")
+        print(f"[kernels] fused_query dryrun B={b} N={n} M={m} C={c} k={k}: "
+              f"bitwise equal")
+        report["fused_query dryrun"] = _fq_row(torch, args, k,
+                                               _max_abs_err(got[0], want[0]))
+        del args, got, want
+    for b, n, r, cap, kq, kd, k in sorted(calls["rescore"], reverse=True):
+        if kq != kd:
+            raise AssertionError(f"the dry-run's rescore had Kq={kq} "
+                                 f"against Kd={kd}: no case for it")
+        for unit in (True, False):
+            res = check_rescore(b, n, r, cap, kd, k, unit)
+        report[f"sparse_rescore_topk dryrun slab {cap}"] = _rescore_row(
+            torch, *res, k)
+        del res
+    torch.cuda.empty_cache()
+    return report
+
+
 # ---------------------------------------------------------------- phase 5m
 
 @contextlib.contextmanager
@@ -2030,13 +2222,19 @@ def main() -> int:
                   rescore_graph=graph_shapes["rescore"],
                   pair_graph=graph_shapes["pair"])
     report = check_kernels(torch, dev, shapes)
+    # phase 7 after phase 5's other checks: its cells keep the card busy
+    # for minutes, and phase 5's profiles are best read early (PERF.md
+    # section 7); its own shapes are checked just after it
+    dryrun = run_dryrun_path(torch, dev)
+    report.update(check_dryrun_shapes(torch, dev, dryrun.pop("calls")))
 
     path_counts = {"main": main_path["launches"],
                    "configs": configs["launches"],
                    "graph": graph["launches"],
                    "multimodal": multimodal["launches"],
                    "serve": serving["launches"],
-                   "sharded": sharded["launches"]}
+                   "sharded": sharded["launches"],
+                   "dryrun": dryrun["launches"]}
     kernels = []
     for name, (source, replaces, path) in SOURCES.items():
         # topk_select's line carries the merge shape, the larger of its two
@@ -2050,8 +2248,10 @@ def main() -> int:
             launches_multimodal=path_counts["multimodal"][name],
             launches_serve=path_counts["serve"][name],
             launches_sharded=path_counts["sharded"][name],
+            launches_dryrun=path_counts["dryrun"][name],
             max_abs_err=rep["max_abs_err"], ms=rep["ms"],
-            device_ms=rep["device_ms"], plain_ms=rep["plain_ms"],
+            device_ms=rep["device_ms"], device_calls=rep.get("device_calls"),
+            plain_ms=rep["plain_ms"],
             bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
             library_ms=rep.get("library_ms"), shape=rep["shape"]))
     for extra in ("topk_select read", "fused_query B=256",
@@ -2059,7 +2259,8 @@ def main() -> int:
                   "sparse_dot_batched rescore shape",
                   "sparse_rescore_topk multimodal", "pair_score multimodal",
                   "fused_query sharded", "sparse_rescore_topk sharded",
-                  "pair_score sharded"):
+                  "pair_score sharded", *sorted(
+                      name for name in report if "dryrun" in name)):
         print(f"[kernels] {extra}: " + json.dumps(report[extra]))
     print(f"[smoke] every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")

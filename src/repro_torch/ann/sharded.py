@@ -53,7 +53,9 @@ d/M], ``members_idx`` int64 [C_loc, S, K] (uint32 values),
 ``row_ids`` int32 [C_loc, S] (the bits of the uint32 point id; PAD_ID is
 -1), ``valid`` bool [C_loc, S], ``counts`` int32 [C_loc].
 
-The dry-run's ``index_specs`` and ``*_shapes`` are not ported.
+The dry-run (``launch/dryrun.py``) sizes its cells with ``index_specs``,
+``index_shapes`` and the ``*_shapes`` below, and fills them with
+``seeded_cell``.
 """
 from __future__ import annotations
 
@@ -335,3 +337,154 @@ def make_compact_step(mesh, cell: GusCellConfig):
                 torch.cat([o[1].to(dev0) for o in out]))
 
     return step
+
+
+# ------------------------------------------------------- the dry-run's cells
+
+STATE_KEYS = ("centroids", "books", *MUTABLE)
+# the index vocabulary of a seeded cell: small, so rows share indices and
+# the exact rescore finds matches
+VOCAB = 64
+# the live share of each slab of a seeded cell: the rest is room for a
+# mutate step's batch
+FILL = 0.5
+
+
+def index_specs(cell: GusCellConfig, mesh) -> dict:
+    """How each state key is split over the shards (the reference's
+    PartitionSpecs): 0 where dim 0 is split over every mesh axis in linear
+    shard order, ``None`` where the key is replicated (``books``)."""
+    return {key: None if key == "books" else 0 for key in STATE_KEYS}
+
+
+def index_shapes(cell: GusCellConfig) -> dict:
+    """key -> (global shape, torch dtype) of the index state. Shapes are
+    the reference's; dtypes the port's: ``members_idx`` int64 holding the
+    uint32 values, ``row_ids`` int32 holding their bits."""
+    c, s = cell.n_partitions, cell.slab
+    k, m = cell.k_dims, cell.pq_m
+    return {
+        "centroids": ((c, cell.d_proj), torch.float32),
+        "books": ((m, cell.pq_centers, cell.d_proj // m), torch.float32),
+        "members_idx": ((c, s, k), torch.int64),
+        "members_val": ((c, s, k), torch.float32),
+        "codes": ((c, s, m), torch.uint8),
+        "row_ids": ((c, s), torch.int32),
+        "valid": ((c, s), torch.bool),
+        "counts": ((c,), torch.int32),
+    }
+
+
+def query_shapes(cell: GusCellConfig) -> tuple:
+    """(shape, dtype) of ``q_idx`` (int64: uint32 values), ``q_val``,
+    ``q_sketch``."""
+    b, k = cell.query_batch, cell.k_dims
+    return (((b, k), torch.int64), ((b, k), torch.float32),
+            ((b, cell.d_proj), torch.float32))
+
+
+def mutate_shapes(cell: GusCellConfig) -> tuple:
+    """(shape, dtype) of ``ids`` and ``new_idx`` (int64: uint32 values),
+    ``new_val``, ``new_sketch``, ``new_codes``."""
+    b, k = cell.mutate_batch, cell.k_dims
+    return (((b,), torch.int64), ((b, k), torch.int64),
+            ((b, k), torch.float32), ((b, cell.d_proj), torch.float32),
+            ((b, cell.pq_m), torch.uint8))
+
+
+def delete_shapes(cell: GusCellConfig) -> tuple:
+    """(shape, dtype) of the tombstones' ``parts`` and ``poss``: int64, as
+    the mutate step returns its landing sites."""
+    b = cell.mutate_batch
+    return (((b,), torch.int64), ((b,), torch.int64))
+
+
+def _generator(dev: torch.device, seed: int) -> torch.Generator:
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return g
+
+
+def _sparse_rows(g, shape, dev):
+    """Indices from ``VOCAB`` with an eighth padding, values in +-{1, 2,
+    3}: every dot of two rows is a small integer."""
+    idx = torch.randint(0, VOCAB, shape, generator=g, device=dev)
+    pad = torch.rand(shape, generator=g, device=dev) < 0.125
+    idx = torch.where(pad, PAD_INDEX, idx)
+    mag = torch.randint(1, 4, shape, generator=g, device=dev)
+    sign = torch.randint(0, 2, shape, generator=g, device=dev) * 2 - 1
+    return idx, (mag * sign).to(torch.float32)
+
+
+def seeded_cell(cell: GusCellConfig, mesh, *, seed: int = 0
+                ) -> tuple[list[dict], dict]:
+    """One cell's per-shard states on the mesh's devices and its step
+    inputs, drawn from ``seed`` by a ``torch.Generator`` on each shard's
+    device (shard ``i`` draws from ``seed * 1_000_003 + i``).
+
+    Every value is a small integer (centroids, books, sketches, sparse
+    rows from ``VOCAB``), so every sum the query step forms is exact in
+    any order and a card agrees with the CPU bit for bit. Each slab's
+    first ``FILL`` of its slots are live and its cursor is there; the rest
+    are empty (padding, invalid). A live slot's row id is ``global
+    partition * S + slot``: unique and below ``C * S``, the first id of
+    the mutation batch. Inputs: ``"query"``, copies of stored rows (query
+    ``b`` a live row of shard ``b % shards``, its sketch that partition's
+    centroid, so the owning shard probes it); ``"mutate"``, ids ``C * S +
+    arange(B)`` with random rows (sketches in [-6, 6], so rows spread over
+    the partitions). Draws differ between devices: a CPU twin of a card's
+    cell is a copy, not a second draw."""
+    n = mesh.size
+    if cell.n_partitions % n:
+        raise ValueError(f"seeded_cell: {cell.n_partitions} partitions do "
+                         f"not split over {n} shards")
+    c_loc, s, k, m, d = (cell.n_partitions // n, cell.slab, cell.k_dims,
+                         cell.pq_m, cell.d_proj)
+    live = int(s * FILL)
+    dev0 = mesh.devices[0]
+    g0 = _generator(dev0, seed * 1_000_003 + n)
+    books = torch.randint(-3, 4, (m, cell.pq_centers, d // m), generator=g0,
+                          device=dev0).to(torch.float32)
+    b = cell.query_batch
+    q_idx = torch.empty((b, k), dtype=torch.int64, device=dev0)
+    q_val = torch.empty((b, k), dtype=torch.float32, device=dev0)
+    q_sk = torch.empty((b, d), dtype=torch.float32, device=dev0)
+    states = []
+    for i, dev in enumerate(mesh.devices):
+        g = _generator(dev, seed * 1_000_003 + i)
+        idx = torch.full((c_loc, s, k), PAD_INDEX, dtype=torch.int64,
+                         device=dev)
+        val = torch.zeros((c_loc, s, k), dtype=torch.float32, device=dev)
+        idx[:, :live], val[:, :live] = _sparse_rows(g, (c_loc, live, k), dev)
+        codes = torch.zeros((c_loc, s, m), dtype=torch.uint8, device=dev)
+        codes[:, :live] = torch.randint(0, cell.pq_centers, (c_loc, live, m),
+                                        generator=g, device=dev,
+                                        dtype=torch.uint8)
+        slot = torch.arange(s, device=dev)
+        valid = (slot < live).expand(c_loc, s).contiguous()
+        part = torch.arange(i * c_loc, (i + 1) * c_loc, device=dev)
+        row_ids = torch.where(valid, part[:, None] * s + slot, ROW_PAD)
+        st = {"centroids": torch.randint(-4, 5, (c_loc, d), generator=g,
+                                         device=dev).to(torch.float32),
+              "books": books.to(dev), "members_idx": idx,
+              "members_val": val, "codes": codes,
+              "row_ids": row_ids.to(torch.int32), "valid": valid,
+              "counts": torch.full((c_loc,), live, dtype=torch.int32,
+                                   device=dev)}
+        states.append(st)
+        mine = torch.arange(i, b, n, device=dev0)
+        if len(mine):
+            p = torch.randint(0, c_loc, (len(mine),), generator=g, device=dev)
+            j = torch.randint(0, live, (len(mine),), generator=g, device=dev)
+            q_idx[mine] = idx[p, j].to(dev0)
+            q_val[mine] = val[p, j].to(dev0)
+            q_sk[mine] = st["centroids"][p].to(dev0)
+    bm = cell.mutate_batch
+    new_idx, new_val = _sparse_rows(g0, (bm, k), dev0)
+    mutate = (torch.arange(bm, device=dev0) + cell.n_partitions * s,
+              new_idx, new_val,
+              torch.randint(-6, 7, (bm, d), generator=g0,
+                            device=dev0).to(torch.float32),
+              torch.randint(0, cell.pq_centers, (bm, m), generator=g0,
+                            device=dev0, dtype=torch.uint8))
+    return states, {"query": (q_idx, q_val, q_sk), "mutate": mutate}

@@ -109,6 +109,24 @@ def function(lib_name: str, fn_name: str, argtypes):
     return fn
 
 
+INT32_MAX = 2 ** 31 - 1
+GRID_Y_MAX = 65535
+
+
+def check_int32(what: str, **sizes: int) -> None:
+    """Refuse a shape the kernels cannot address: every size they take as
+    an ``int`` (a count, a row's length, a grid's blocks) must fit it,
+    and is never let wrap."""
+    big = {name: n for name, n in sizes.items() if n > INT32_MAX}
+    if big:
+        raise ValueError(f"{what}: {big} past the kernels' int32 range")
+
+
+def library_bytes(name: str) -> int:
+    """The size of one source's built library file."""
+    return _lib_path(name).stat().st_size
+
+
 def check(code: int, lib_name: str, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
     if code != 0:

@@ -109,6 +109,7 @@ def _launch(entry: str, table, codes, ids, valid, bias, k: int):
     b, m, c = lut.shape
     n = codes.shape[1]
     chunk, words = _tk.chunk_plan(n, k)
+    _build.check_int32("fused_query", N=n, blocks=b * -(-n // chunk))
     args = [t.contiguous() for t in (*table, codes, ids, valid, bias)]
     dev = lut.device
     vals = torch.empty((b, k), dtype=torch.float32, device=dev)

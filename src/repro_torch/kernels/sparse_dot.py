@@ -183,6 +183,13 @@ def sparse_rescore_topk(q_idx, q_val, flat_slots, short_pos, short_scores,
     if _build.device_kind(q_idx, "sparse_rescore_topk") == "cpu":
         return sparse_rescore_topk_plain(q_idx, q_val, flat_slots, short_pos,
                                          short_scores, sp_idx, sp_val, k)
+    # the slots are int32, so are the counts; a long shortlist's keys pass
+    # takes the rows on its grid's y dimension
+    _build.check_int32("sparse_rescore_topk", B=b, N=flat_slots.shape[1],
+                       slab_rows=sp_idx.shape[0])
+    if r > MAX_REORDER and b > _build.GRID_Y_MAX:
+        raise ValueError(f"sparse_rescore_topk: B={b} rows past "
+                         f"{_build.GRID_Y_MAX} with a shortlist of {r}")
     dev = q_idx.device
     tensors = {"q_idx": (q_idx, torch.int64), "q_val": (q_val, torch.float32),
                "flat_slots": (flat_slots, torch.int32),

@@ -270,10 +270,10 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 46
+    assert len(names) >= 58
     assert {f"repro_torch.{m}" for m in (
         "graph", "graph.store", "graph.cc", "core.graph", "core.grale",
-        "ann.sharded", "ann.sharded_index", "launch.mesh",
+        "ann.sharded", "ann.sharded_index", "launch.mesh", "launch.dryrun",
         "core.maintenance", "kernels.topk_select", "kernels.pq_score",
         "serve", "serve.engine", "serve.faults", "serve.frontend",
         "serve.maintenance", "serve.pipeline", "serve.replica",

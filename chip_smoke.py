@@ -105,12 +105,26 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    one ``[dryrun]`` line per record (step ms, temp_bytes, peak GB); it
    records the fused shortlist's and the rescore's shapes, and phase 5's
    checks run there just after it (the ``dryrun`` rows);
-8. print one JSON line with each kernel's numbers (with its launches on
+8. the LM tower (run after phase 7; ``run_lm_path``): qwen3-8b at its
+   published widths and full depth (36 layers, d 4,096, 32/8 heads,
+   vocab 151,936; 8.19 B params, 16.38 GB in bf16, random from a seed)
+   through ``serve/serve_step.py``: (a) in bf16, a prefill of 8 prompts
+   of 512 tokens, the same 8 served one decode step per prompt token and
+   then 32 greedy tokens, twice (tokens bit for bit), each prompt step's
+   logits within the bound below of the prefill's, one decode step
+   profiled, and a 3,000-token prefill (the flash path, padded) against
+   the same prompt through full attention; (b) the same weights in f32:
+   decode against teacher-forced within 1e-3 on 2 requests of 128
+   tokens, and the gap of (a)'s prefill to the f32 logits, whose largest
+   value times ``DECODE_GAP_FACTOR`` bounds (a)'s decode-vs-prefill gap
+   and its flash-vs-full gap. It must launch none of the GUS kernels;
+9. print one JSON line with each kernel's numbers (with its launches on
    each path, ``launches_serve`` the serving phase's,
-   ``launches_sharded`` the sharded phase's and ``launches_dryrun`` the
-   dry-run's), then the result line.
+   ``launches_sharded`` the sharded phase's, ``launches_dryrun`` the
+   dry-run's and ``launches_lm`` the LM tower's, all 0), then the result
+   line.
 
-Phases 2-4, 6, 6s, 5m and 7 each zero the kernel launch counts just
+Phases 2-4, 6, 6s, 5m, 7 and 8 each zero the kernel launch counts just
 before they start and read them just after; every kernel a phase runs
 must have launched in it. The index paths reach the exact rescore through
 ``sparse_rescore_topk`` and pair scoring through ``pair_score``, so
@@ -181,6 +195,14 @@ def _device_profile(fn, torch) -> tuple[float, int]:
     device records, more as the process ages (PERF.md section 7), so only
     the calls whose records came back whole count; windows repeat, up to
     WINDOWS, until REPS // 2 calls have, and none raises."""
+    whole = [sum(us for _, us in call) for call in _profile_calls(fn, torch)]
+    return sum(whole) / len(whole) / 1e3, len(whole)
+
+
+def _profile_calls(fn, torch, reps: int = REPS) -> list:
+    """``_device_profile``'s windows of ``reps`` calls: the device records
+    (name, microseconds) of each call whose records came back whole (one
+    list per call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -189,25 +211,26 @@ def _device_profile(fn, torch) -> tuple[float, int]:
     for _ in range(WINDOWS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(REPS):
+            for _ in range(reps):
                 torch.cuda._sleep(1)
                 fn()
             torch.cuda._sleep(1)
             torch.cuda.synchronize()
         whole += _whole_calls([e for e in prof.events()
                                if e.device_type == DeviceType.CUDA])
-        if len(whole) >= REPS // 2:
+        if len(whole) >= reps // 2:
             break
     if not whole:
         raise AssertionError(f"torch.profiler kept no call's device records "
-                             f"in {WINDOWS} windows of {REPS}")
-    return sum(whole) / len(whole) / 1e3, len(whole)
+                             f"in {WINDOWS} windows of {reps}")
+    return whole
 
 
 def _whole_calls(records) -> list:
-    """Device microseconds of each call whose records came back whole: the
-    records between two separators on the device's timeline, where their
-    count is the window's most common non-zero one ([] if none)."""
+    """The device records (name, microseconds) of each call whose records
+    came back whole: the records between two separators on the device's
+    timeline, where their count is the window's most common non-zero one
+    ([] if none)."""
     calls, call = [], None
     for e in sorted(records, key=lambda e: e.time_range.start):
         if SEPARATOR in e.name:
@@ -215,12 +238,12 @@ def _whole_calls(records) -> list:
                 calls.append(call)
             call = []
         elif call is not None:
-            call.append(e.time_range.elapsed_us())
+            call.append((e.name, e.time_range.elapsed_us()))
     counts = collections.Counter(len(c) for c in calls if c)
     if not counts:
         return []
     usual = counts.most_common(1)[0][0]
-    return [sum(c) for c in calls if len(c) == usual]
+    return [c for c in calls if len(c) == usual]
 
 
 def _timed(torch, kernel, plain, **extra) -> dict:
@@ -2157,6 +2180,317 @@ def run_multimodal_path(torch, n_points: int, dev) -> tuple[dict, dict]:
                      brute_calls=sorted(brute))
 
 
+# ---------------------------------------------------------------- phase 8
+
+BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
+# (the bounds below count the bf16 products only: the f32 attention
+# products and the elementwise passes come on top)
+LM_SIZE = dict(batch=8, prompt=512, new=32, max_len=1024, long=3000,
+               exact=(2, 128))
+# the decode-vs-prefill bound of phase 8 (a): this many times the largest
+# gap between the bf16 prefill's logits and the f32 model's on the same
+# prompts (phase 8 (b)). Decode and prefill each sit within about that gap
+# of the f32 answer, so their distance is within twice it; the other two
+# allow for positions and requests where the decode's rounding is the
+# larger one.
+DECODE_GAP_FACTOR = 4.0
+LM_PROFILE_REPS = 6              # decode steps a profiler window holds
+
+
+def _lm_leaves(params) -> list:
+    return [t for v in params.values()
+            for t in (v.values() if isinstance(v, dict) else (v,))]
+
+
+def _call_summary(calls, top: int = 6) -> dict:
+    """Device ms per call, device records per call, and the ``top``
+    kernels by device ms per call (names cut to 80 characters), from
+    ``_profile_calls``."""
+    by_name = collections.Counter()
+    for call in calls:
+        for name, us in call:
+            by_name[name[:80]] += us / len(calls) / 1e3
+    return dict(device_ms=sum(by_name.values()), records=len(calls[0]),
+                calls=len(calls),
+                top=[[name, ms] for name, ms in by_name.most_common(top)])
+
+
+def _upcast(params, dtype) -> None:
+    """Every leaf of ``params`` to ``dtype`` in place, one tensor at a
+    time, so the old copy is freed as the new one is made."""
+    for key, value in params.items():
+        if isinstance(value, dict):
+            _upcast(value, dtype)
+        else:
+            params[key] = value.to(dtype)
+
+
+def _logit_gap(torch, got, want, vocab: int) -> dict:
+    """``got`` against ``want`` over the first ``vocab`` logits: max abs,
+    relative L2 and the share of positions whose argmax agrees."""
+    got, want = got[..., :vocab].float(), want[..., :vocab].float()
+    return dict(max_abs=float((got - want).abs().max()),
+                rel_l2=float(torch.linalg.vector_norm(got - want)
+                             / torch.linalg.vector_norm(want)),
+                argmax_agree=float((got.argmax(-1) == want.argmax(-1))
+                                   .float().mean()))
+
+
+def _wall_ms(torch, fn, reps: int) -> list:
+    """Wall ms of ``reps`` calls, each ending in a device synchronise (the
+    caller has made the warm-up call)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _serve_prompts(torch, step, params, cache, prompts, new: int,
+                   prefill=None):
+    """Serve ``prompts`` [B, P] as the reference's decode test does: one
+    decode step per prompt token into ``cache``, then ``new`` greedy
+    tokens. Returns the greedy tokens [B, new], each step's wall ms, and,
+    with ``prefill`` ([B, P, V] logits of the same prompts), the max abs
+    gap of each prompt step's logits to the prefill's [P, B]."""
+    gaps, times, out = [], [], []
+    finite = torch.ones((), dtype=torch.bool, device=prompts.device)
+    tok = None
+    for t in range(prompts.shape[1] + new):
+        feed = prompts[:, t] if t < prompts.shape[1] else tok
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, logits, cache = step(params, cache, feed)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        finite &= torch.isfinite(logits).all()
+        if t >= prompts.shape[1]:
+            out.append(tok)
+        elif prefill is not None:
+            gaps.append((logits - prefill[:, t, :logits.shape[-1]].float())
+                        .abs().amax(-1))
+    if not bool(finite):
+        raise AssertionError("a decode step gave a non-finite logit")
+    gap = torch.stack(gaps) if gaps else None
+    return torch.stack(out, 1), times, gap
+
+
+def _lm_estimate(cfg, n_params: int, size: dict) -> dict:
+    """Phase 8's peak memory and time from its shapes: (a) holds the bf16
+    weights, the cache and the kept prefill logits, and on top of them
+    the largest of: the 3,000-token prompt's logits and four f32 score
+    tiles of its flash chunk; its logits twice (flash and full attention)
+    and their comparison (the up-cast pair and two f32 temporaries); the
+    first logits and three f32 score tensors of full attention; (b) the f32
+    weights, the kept bf16 logits, the f32 logits of the same prompts and
+    three f32 temporaries of their comparison.
+    Time: each decode step (both passes of (a), the f32 requests of (b))
+    at the larger of its weight-read bound and its host launches (about
+    3,200 a step at 17 us each on the H100 machine's host, PERF.md
+    section 6), plus 30 s for the prefills, the profile and the f32
+    up-cast."""
+    v, b, p = cfg.padded_vocab, size["batch"], size["prompt"]
+    kv = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim_ * 2
+    cache = kv * b * size["max_len"]
+    chunk = min(cfg.attn_chunk, size["long"])
+    flash = 4 * 4 * cfg.n_heads * size["long"] * chunk
+    full = 3 * 4 * cfg.n_heads * size["long"] ** 2
+    long = 2 * v * size["long"]
+    peak_a = 2 * n_params + cache + 2 * v * b * p + max(
+        long + flash, 2 * long + 4 * 2 * long, long + full)
+    peak_b = 4 * n_params + 2 * v * b * p + 4 * 4 * v * b * p
+    step_s = max(2 * n_params / HBM_BYTES_PER_S, 3200 * 17e-6)
+    steps = 2 * (p + size["new"]) + size["exact"][1]
+    return dict(peak_a_gb=peak_a / 1e9, peak_b_gb=peak_b / 1e9,
+                seconds=steps * step_s + 30.0)
+
+
+def run_lm_path(torch, dev, cfg=None, **size) -> dict:
+    """Phase 8: the LM tower's dense serving path at qwen3-8b's published
+    widths and full depth (``cfg``; a rehearsal passes a cut one, and
+    ``size`` cuts the requests), through ``make_prefill_step`` and
+    ``make_decode_step``.
+
+    (a) bf16 params and compute, from seed 0 on the card: one prefill of
+    8 seeded prompts of 512 tokens (timed); the same 8 served by the
+    decode step, one step per prompt token into ``init_cache(cfg, 8,
+    1024)``, then 32 greedy tokens, twice, the greedy tokens bit for bit
+    equal; each prompt step's logits against the prefill's; one decode
+    step profiled (device busy per step, its launches, idle share); one
+    prefill of a 3,000-token prompt (the flash path, padded), held against
+    the same prompt through full attention. (b) the
+    same weights up-cast to f32: the teacher-forced logits of the 8
+    prompts (the bf16 prefill's gap to them: max abs, relative L2,
+    argmax agreement, on the first 128 tokens of 2 requests and on all),
+    then 2 requests of 128 tokens decoded, within 1e-3 of those logits
+    at every position. The decode-vs-prefill gap of (a) must stay within
+    ``DECODE_GAP_FACTOR`` times the bf16 prefill's largest gap to f32, and
+    so must the 3,000-token prompt's flash-vs-full gap. No GUS kernel may
+    launch."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import make_decode_step, make_prefill_step
+
+    size = dict(LM_SIZE, **size)
+    cfg = cfg or get_config("qwen3-8b")
+    b, p, new = size["batch"], size["prompt"], size["new"]
+    nb, nt = size["exact"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = t0 = time.perf_counter()
+
+    # (a) the served model, bf16
+    params = build_model(cfg).init_params(0, cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = _lm_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    weights_gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    del leaves
+    # the params of the products (the embed is a gather, norms are scales)
+    mm_params = params["lm_head"].numel() + sum(
+        params["blocks"][name].numel()
+        for name in ("wq", "wk", "wv", "wo", "gate", "up", "down"))
+    cache_gb = (2 * cfg.n_layers * b * size["max_len"] * cfg.n_kv_heads
+                * cfg.head_dim_ * cfg.cdtype.itemsize / 1e9)
+    est = _lm_estimate(cfg, n_params, size)
+    print(f"[lm] {cfg.arch_id}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads}, head_dim {cfg.head_dim_}, "
+          f"ff {cfg.d_ff}, vocab {cfg.vocab_size}; {n_params:,} params, "
+          f"{weights_gb:.2f} GB {cfg.param_dtype}, drawn in "
+          f"{init_s:.2f} s; estimate: peak {est['peak_a_gb']:.1f} GB (a), "
+          f"{est['peak_b_gb']:.1f} GB (b), {est['seconds']:.0f} s; "
+          f"{held_gb:.2f} GB held by earlier phases")
+    rng = np.random.default_rng(8)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, p)),
+                              dtype=torch.int32, device=dev)
+    long_prompt = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (1, size["long"])),
+        dtype=torch.int32, device=dev)
+    prefill = make_prefill_step(cfg)
+    logits = prefill(params, {"tokens": prompts})
+    if (logits.shape != (b, p, cfg.padded_vocab)
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} are "
+                             f"not all finite or not [B, P, Vp]")
+    prefill_ms = _wall_ms(torch, lambda: prefill(params, {"tokens": prompts}),
+                          3)
+    split = {"init_prefill": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+
+    step = make_decode_step(cfg)
+    tokens, _, gap = _serve_prompts(
+        torch, step, params, T.init_cache(cfg, b, size["max_len"], dev),
+        prompts, new, prefill=logits)
+    cache = T.init_cache(cfg, b, size["max_len"], dev)
+    again, step_ms, _ = _serve_prompts(torch, step, params, cache, prompts,
+                                       new)
+    if not torch.equal(tokens, again):
+        raise AssertionError("greedy tokens differ between two passes from "
+                             "the same seed")
+    split["decode"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    last = tokens[:, -1]
+    decode_prof = _call_summary(_profile_calls(
+        lambda: step(params, cache, last), torch, reps=LM_PROFILE_REPS))
+    prefill_prof = _call_summary(_profile_calls(
+        lambda: prefill(params, {"tokens": prompts}), torch, reps=2))
+    split["profile"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    long_logits = prefill(params, {"tokens": long_prompt})
+    if (long_logits.shape != (1, size["long"], cfg.padded_vocab)
+            or not bool(torch.isfinite(long_logits).all())):
+        raise AssertionError("the 3,000-token prefill gave a non-finite "
+                             "logit")
+    # the same prompt through full attention (``attn_chunk`` at its
+    # length): flash's chunk offsets and padding held at every position
+    full_logits = make_prefill_step(dataclasses.replace(
+        cfg, attn_chunk=size["long"]))(params, {"tokens": long_prompt})
+    flash_gap = _logit_gap(torch, long_logits, full_logits, cfg.vocab_size)
+    del long_logits, full_logits
+    long_ms = _wall_ms(torch, lambda: prefill(params,
+                                              {"tokens": long_prompt}), 3)
+    peak_a = torch.cuda.max_memory_allocated() / 1e9
+    del cache
+    split["long"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # (b) the same weights in f32
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    _upcast(params, torch.float32)
+    want = make_prefill_step(cfg32)(params, {"tokens": prompts})
+    exact_gap = _logit_gap(torch, logits[:nb, :nt], want[:nb, :nt],
+                           cfg.vocab_size)
+    all_gap = _logit_gap(torch, logits, want, cfg.vocab_size)
+    del logits
+    cache = T.init_cache(cfg32, nb, nt, dev)
+    errs = []
+    decode32 = make_decode_step(cfg32)
+    for t in range(nt):
+        _, dl, cache = decode32(params, cache, prompts[:nb, t])
+        errs.append((dl - want[:nb, t, :cfg.vocab_size]).abs().max())
+    decode_err = float(torch.stack(errs).max())
+    peak_b = torch.cuda.max_memory_allocated() / 1e9
+    split["f32"] = time.perf_counter() - t0
+    del params, want, cache
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    torch.cuda.empty_cache()
+
+    prompt_gap = float(gap.max())
+    bound = DECODE_GAP_FACTOR * all_gap["max_abs"]
+    p50 = float(np.percentile(step_ms, 50))
+    out = dict(
+        arch=cfg.arch_id, params=n_params, weights_gb=weights_gb,
+        init_s=init_s, estimate=est, peak_a_gb=peak_a, peak_b_gb=peak_b,
+        prefill_ms=float(np.median(prefill_ms)),
+        prefill_tok_s=b * p / (float(np.median(prefill_ms)) / 1e3),
+        long_prefill_ms=float(np.median(long_ms)),
+        long_prefill_tok_s=size["long"] / (float(np.median(long_ms)) / 1e3),
+        prefill_bound_ms=2 * mm_params * b * p / BF16_OPS_PER_S * 1e3,
+        long_prefill_bound_ms=(2 * mm_params * size["long"] / BF16_OPS_PER_S
+                               * 1e3),
+        decode_bound_ms=(weights_gb + cache_gb) * 1e9 / HBM_BYTES_PER_S * 1e3,
+        decode_p50_ms=p50, decode_p99_ms=float(np.percentile(step_ms, 99)),
+        decode_tok_s=b / (p50 / 1e3), decode_steps=len(step_ms),
+        decode_device_ms=decode_prof["device_ms"],
+        decode_idle_share=1.0 - decode_prof["device_ms"] / p50,
+        decode_profile=decode_prof, prefill_profile=prefill_prof,
+        split_s=split,
+        decode_vs_prefill=prompt_gap, decode_vs_prefill_bound=bound,
+        long_flash_vs_full=flash_gap,
+        bf16_vs_f32_2x128=exact_gap, bf16_vs_f32_all=all_gap,
+        f32_decode_vs_tf=decode_err, launches=counts,
+        phase_s=time.perf_counter() - t_phase)
+    print("[lm] " + json.dumps(out))
+    if any(counts.values()):
+        raise AssertionError(f"the LM path launched GUS kernels: {counts}")
+    if not decode_err < 1e-3:
+        raise AssertionError(f"f32 decode vs teacher-forced: {decode_err} "
+                             f">= 1e-3")
+    if not prompt_gap <= bound:
+        raise AssertionError(f"bf16 decode vs prefill: {prompt_gap} > "
+                             f"{DECODE_GAP_FACTOR} x {all_gap['max_abs']}")
+    if not flash_gap["max_abs"] <= bound:
+        raise AssertionError(f"the 3,000-token prefill, flash vs full "
+                             f"attention: {flash_gap['max_abs']} > "
+                             f"{DECODE_GAP_FACTOR} x {all_gap['max_abs']}")
+    return out
+
+
 SOURCES = {  # kernel -> (CUDA source, TPU kernel it replaces, path)
     "fused_query": ("src/repro_torch/kernels/csrc/fused_query.cu",
                     "src/repro/kernels/fused_query.py:172", "main"),
@@ -2227,6 +2561,7 @@ def main() -> int:
     # section 7); its own shapes are checked just after it
     dryrun = run_dryrun_path(torch, dev)
     report.update(check_dryrun_shapes(torch, dev, dryrun.pop("calls")))
+    lm = run_lm_path(torch, dev)
 
     path_counts = {"main": main_path["launches"],
                    "configs": configs["launches"],
@@ -2249,6 +2584,7 @@ def main() -> int:
             launches_serve=path_counts["serve"][name],
             launches_sharded=path_counts["sharded"][name],
             launches_dryrun=path_counts["dryrun"][name],
+            launches_lm=lm["launches"][name],
             max_abs_err=rep["max_abs_err"], ms=rep["ms"],
             device_ms=rep["device_ms"], device_calls=rep.get("device_calls"),
             plain_ms=rep["plain_ms"],

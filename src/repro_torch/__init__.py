@@ -11,10 +11,14 @@ without a card they raise instead of falling back to the CPU.
 
 Float32 products stay full float32 on the card: TF32 would keep about
 three decimal digits, enough to flip SimHash sign bits
-(``core/buckets.py``) and partition or PQ-code argmins. Both switches are
-set here, once for the whole package.
+(``core/buckets.py``) and partition or PQ-code argmins. For the same
+reason bf16 products keep their f32 accumulation to the end: cuBLAS may
+otherwise round split-K partial sums to bf16, where the reference's
+products accumulate in f32 (the LM tower, ``models/``). All three
+switches are set here, once for the whole package.
 """
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

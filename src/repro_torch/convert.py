@@ -32,6 +32,9 @@ the reference (the engine's snapshot of record) into the port's, so a port
 engine restores from it (the sharded index's salt included, so it
 re-routes as the reference does); like the port's own snapshots it holds host
 arrays only, and ``restore_state`` puts them on the engine's device.
+``lm_params`` carries the LM tower's params tree (``init_params`` of the
+reference's ``models/transformer.py``, as nested numpy arrays) into the
+port's dict of tensors.
 """
 from __future__ import annotations
 
@@ -173,3 +176,19 @@ def engine_snapshot(ref_state: dict) -> dict:
         "graph": graph_snapshot(graph) if graph is not None else None,
         "multimodal": multimodal_state(mm) if mm is not None else None,
     }
+
+
+def lm_params(arrays: dict, cfg, device=None) -> dict:
+    """The reference transformer's params tree (nested dicts of numpy
+    arrays of any float dtype, bf16 included) as the port's dict of
+    tensors on ``device``: the norm weights in f32 as the reference keeps
+    them, every other leaf in ``cfg.pdtype``."""
+    dev = resolve(device)
+
+    def leaf(name, a):
+        dtype = torch.float32 if name.endswith("norm") else cfg.pdtype
+        return torch.as_tensor(np.array(a, np.float32), device=dev).to(dtype)
+
+    return {name: ({k: leaf(k, v) for k, v in a.items()}
+                   if isinstance(a, dict) else leaf(name, a))
+            for name, a in arrays.items()}

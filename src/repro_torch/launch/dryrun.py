@@ -67,9 +67,10 @@ from repro_torch.kernels import ops
 from repro_torch.launch.mesh import make_gus_mesh, make_production_mesh
 from repro_torch.utils.device import resolve
 
-LM_CELLS = ("the architecture cells (--arch/--shape) reach the LM tower "
-            "(models/, configs/, train/), which is not ported: ROADMAP.md "
-            "Queue 1 item 5")
+LM_CELLS = ("the architecture cells (--arch/--shape) are not ported: the "
+            "LM tower's dense serving path is (configs/, models/, "
+            "serve/serve_step.py), but the cells wait for ROADMAP.md "
+            "Queue 1 item 5.4 (launch/sharding.py, the specs, run_cell)")
 CHECK_QUERIES = 64
 
 

@@ -16,12 +16,13 @@
                    bitwise the synchronous path at staleness bound 0 — the
                    module doc lists the window-closing rules);
   maintenance.py — ``MaintenanceWorker``: the concurrent maintenance
-                   plane's deferred graph ticks (staleness bound > 0).
+                   plane's deferred graph ticks (staleness bound > 0);
+  serve_step.py  — ``make_prefill_step`` / ``make_decode_step``: the LM
+                   tower's serving steps (``models/``).
 
 Every component reports through one ``repro_torch.obs.Telemetry`` plane
 per engine; ``GusEngine.telemetry()`` snapshots it. The instrument
-catalog is docs/OBSERVABILITY.md. The reference's ``serve_step`` (the LM
-scorer path) is not ported.
+catalog is docs/OBSERVABILITY.md.
 """
 from repro_torch.obs import Telemetry
 from repro_torch.serve.engine import (EngineConfig, GusEngine,
@@ -31,8 +32,10 @@ from repro_torch.serve.frontend import Frontend, FrontendConfig
 from repro_torch.serve.maintenance import MaintenanceWorker
 from repro_torch.serve.pipeline import MutationPipeline, PipelineConfig
 from repro_torch.serve.replica import Replica, ReplicaSet
+from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
 
 __all__ = ["EngineConfig", "FaultInjector", "Frontend", "FrontendConfig",
            "GusEngine", "MaintenanceWorker", "MutationPipeline",
            "PipelineConfig", "Replica", "ReplicaSet",
-           "ServingUnavailableError", "Telemetry"]
+           "ServingUnavailableError", "Telemetry", "make_decode_step",
+           "make_prefill_step"]

@@ -25,6 +25,7 @@ from repro_torch import convert
 from repro_torch.ann.brute import BruteIndex
 from repro_torch.ann.scann import ScannConfig, ScannIndex
 from repro_torch.ann.sharded_index import ShardedConfig, ShardedGusIndex
+from repro_torch.configs import reduced_config
 from repro_torch.core import BucketConfig, FeatureSpec
 from repro_torch.core.buckets import make_bucket_params
 from repro_torch.core.embedding import EmbeddingGenerator
@@ -35,6 +36,8 @@ from repro_torch.core.scorer import (pair_feature_dim, pair_features,
 from repro_torch.data.stream import MutationStream, StreamConfig
 from repro_torch.data.synthetic import (OGB_ARXIV_LIKE, labeled_pairs,
                                         make_dataset)
+from repro_torch.models.transformer import init_cache as lm_init_cache
+from repro_torch.models.transformer import init_params as lm_init_params
 
 ROOT = Path(__file__).resolve().parent.parent
 DATA = dataclasses.replace(OGB_ARXIV_LIKE, n_points=1500, n_clusters=15)
@@ -44,6 +47,7 @@ SCANN = dict(d_proj=64, n_partitions=16, nprobe=10, reorder=128)
 # the parity tests carry the reference's trained state across, so its
 # training need not converge: few iterations keep its eager loops short
 TRAIN_FAST = dict(kmeans_iters=3, pq_iters=2)
+LM_CFG = reduced_config("qwen3-8b")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -218,6 +222,9 @@ def test_card_is_the_default_device():
         lambda: build_idf_table(bid, valid, 4, 10),
         lambda: build_filter_table(bid, valid, 5.0),
         lambda: convert.scorer_params({"w0": np.zeros((5, 10))}),
+        lambda: lm_init_params(0, LM_CFG),
+        lambda: lm_init_cache(LM_CFG, 1, 4),
+        lambda: convert.lm_params({"embed": np.zeros((4, 2))}, LM_CFG),
     ]
     for call in entry_points:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -270,11 +277,14 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 58
+    assert len(names) >= 76
     assert {f"repro_torch.{m}" for m in (
         "graph", "graph.store", "graph.cc", "core.graph", "core.grale",
         "ann.sharded", "ann.sharded_index", "launch.mesh", "launch.dryrun",
         "core.maintenance", "kernels.topk_select", "kernels.pq_score",
         "serve", "serve.engine", "serve.faults", "serve.frontend",
         "serve.maintenance", "serve.pipeline", "serve.replica",
-        "launch", "launch.serve")} <= names
+        "serve.serve_step", "launch", "launch.serve", "configs",
+        "configs.base", "configs.registry", "configs.qwen3_8b",
+        "configs.qwen2_vl_7b", "configs.whisper_tiny", "models",
+        "models.layers", "models.transformer", "models.model")} <= names

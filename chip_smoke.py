@@ -118,13 +118,30 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    tokens, and the gap of (a)'s prefill to the f32 logits, whose largest
    value times ``DECODE_GAP_FACTOR`` bounds (a)'s decode-vs-prefill gap
    and its flash-vs-full gap. It must launch none of the GUS kernels;
-9. print one JSON line with each kernel's numbers (with its launches on
+9. the LM tower's other families (run after phase 8;
+   ``run_lm_families_path``; ``[lm-families]`` lines): qwen2-moe-a2.7b
+   (24 layers, 60 experts top-4 + 4 shared; 14.3 B params, 28.6 GB in
+   bf16), xlstm-1.3b (48 layers, 42 mLSTM + 6 sLSTM) and whisper-tiny
+   (1,500 frames) whole, and jamba-1.5-large-398b cut to one interleave
+   group (8 of 72 layers) and 8 of its 16 experts at its published widths
+   (25.9 B params), each through ``serve/serve_step.py``: (a) in bf16, a
+   prefill of 8 x 512 tokens at the published capacity factor (the MoE
+   drops counted), whisper's ``encode_prefill`` of 8 x 1,500 frames, the
+   prompts' first 64 tokens served by decode steps then 32 greedy tokens,
+   twice (tokens bit for bit), each prompt step against a no-drop prefill
+   (capacity E / k), one decode step profiled; xlstm's 3,000-token prompt
+   through the chunkwise mLSTM against the parallel form, with the sLSTM
+   loop's host time; (b) the same weights in f32 (jamba's a layer at a
+   time): the bf16 prefill's gap to f32 bounds (a)'s gaps as in phase 8,
+   and f32 decode against teacher-forced within 1e-3 (jamba at its
+   ``reduced_config``). It must launch none of the GUS kernels;
+10. print one JSON line with each kernel's numbers (with its launches on
    each path, ``launches_serve`` the serving phase's,
    ``launches_sharded`` the sharded phase's, ``launches_dryrun`` the
-   dry-run's and ``launches_lm`` the LM tower's, all 0), then the result
-   line.
+   dry-run's and ``launches_lm`` the LM tower's (phases 8 and 9), all
+   0), then the result line.
 
-Phases 2-4, 6, 6s, 5m, 7 and 8 each zero the kernel launch counts just
+Phases 2-4, 6, 6s, 5m, 7, 8 and 9 each zero the kernel launch counts just
 before they start and read them just after; every kernel a phase runs
 must have launched in it. The index paths reach the exact rescore through
 ``sparse_rescore_topk`` and pair scoring through ``pair_score``, so
@@ -2491,6 +2508,450 @@ def run_lm_path(torch, dev, cfg=None, **size) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 9
+
+# the models of phase 9 and the cut each runs at: jamba-1.5-large-398b
+# keeps one interleave group (8 of 72 layers: attention, 4 mamba + MoE, 3
+# mamba + dense) and 8 of its 16 experts (top-2 kept); every width is the
+# published one. The others run whole.
+FAMILY_CUTS = (("qwen2-moe-a2.7b", {}), ("xlstm-1.3b", {}),
+               ("whisper-tiny", {}),
+               ("jamba-1.5-large-398b", dict(n_layers=8, n_experts=8)))
+FAMILY_SIZE = dict(batch=8, prompt=512, served=64, new=32, max_len=1024,
+                   long=3000, exact=(2, 64))
+
+
+def _no_drop(cfg):
+    """``cfg`` at capacity_factor E / k for a moe model: capacity >= S,
+    so no token can drop and each token's output is its own (decode and
+    prefill then compute the same function)."""
+    if not cfg.n_experts:
+        return cfg
+    return dataclasses.replace(cfg,
+                               capacity_factor=cfg.n_experts / cfg.moe_top_k)
+
+
+@contextlib.contextmanager
+def _count_drops(stats: dict):
+    """Count the (token, expert) pairs that ``moe.dispatch`` sees and the
+    ones its capacity cut drops, while the context is open (one host read
+    a layer: only around an untimed call)."""
+    from repro_torch.models import moe
+    dispatch = moe.dispatch
+
+    def counted(top_e, n_experts, cap):
+        out = dispatch(top_e, n_experts, cap)
+        stats["pairs"] = stats.get("pairs", 0) + out[2].numel()
+        stats["dropped"] = stats.get("dropped", 0) + int((~out[2]).sum())
+        return out
+
+    moe.dispatch = counted
+    try:
+        yield stats
+    finally:
+        moe.dispatch = dispatch
+
+
+@contextlib.contextmanager
+def _slstm_host(into: list):
+    """Host ms of each ``ssm.slstm_train`` call (its per-token launch loop,
+    without a synchronise) while the context is open."""
+    from repro_torch.models import ssm
+    train = ssm.slstm_train
+
+    def timed(p, cfg, x):
+        t0 = time.perf_counter()
+        out = train(p, cfg, x)
+        into.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    ssm.slstm_train = timed
+    try:
+        yield into
+    finally:
+        ssm.slstm_train = train
+
+
+def _named_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def family_plan(cfg, size: dict = FAMILY_SIZE) -> dict:
+    """Phase 9's sizes and bounds for ``cfg``, from its params and cache
+    trees on the ``meta`` device (no memory; runs on any machine):
+
+    * params, bf16 GB, the cache's GB at 8 x ``max_len``;
+    * decode bound: the bytes a step must move (every weight once: the
+      MoE formulation computes every expert at capacity 1; the KV caches
+      read once; the recurrent state read and written) over the card's
+      memory rate;
+    * prefill bound: the bf16 products of 8 x ``prompt`` tokens (dense
+      weights 2 x numel a token; experts 2 x numel x capacity a sequence,
+      at the published capacity factor) over the bf16 peak; the f32
+      products (router, mLSTM gates, attention scores) and the scans come
+      on top;
+    * peak (a): the bf16 weights, the cache, the kept served logits (bf16
+      and f32), the prefill's logits twice, and the largest transient of a
+      layer: the MoE's expert buffers at capacity E / k (the no-drop
+      prefill of the served prompts), three [B, E, cap, ff] bf16 tensors
+      and one [B, E, cap, d]; the selective scan's four [B, 64, dI, dS] f32
+      blocks; the parallel mLSTM's three [1, H, long, long] f32 matrices;
+    * peak (b): the f32 weights, or for the hybrid (whose cut's f32 copy
+      does not fit) the bf16 weights and its largest layer in f32, plus the
+      f32 and bf16 logits of the served prompts twice."""
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import capacity
+
+    api = build_model(cfg)
+    leaves = dict(_named_leaves(api.init_params(0, cfg, "meta")))
+    cache = api.init_cache(cfg, size["batch"], size["max_len"], "meta")
+    nbytes = lambda t: t.numel() * t.element_size()
+    n_params = sum(t.numel() for t in leaves.values())
+    cache_bytes = sum(nbytes(t) for _, t in _named_leaves(cache))
+    state_bytes = cache_bytes - sum(nbytes(cache[k]) for k in
+                                    ("k", "v", "xk", "xv") if k in cache)
+    b, p, v = size["batch"], size["prompt"], cfg.padded_vocab
+    dense = sum(t.numel() for name, t in leaves.items()
+                if t.dtype == cfg.pdtype and t.ndim > 1 and "embed" not in
+                name and "/moe/w_" not in name)
+    expert = sum(t.numel() for name, t in leaves.items()
+                 if "/moe/w_" in name)
+    cap = capacity(cfg, p) if cfg.n_experts else 0
+    prefill_flops = 2 * b * (p * dense + cap * expert)
+    weights = sum(nbytes(t) for t in leaves.values())
+    served = b * size["served"] * v * (2 + 4)
+    trans = 0
+    if cfg.n_experts:
+        trans = 2 * b * cfg.n_experts * size["served"] * (
+            3 * cfg.expert_ff() + cfg.d_model)
+    if cfg.family == "hybrid":
+        di = cfg.ssm_expand * cfg.d_model
+        trans = max(trans, 4 * 4 * b * 64 * di * cfg.ssm_d_state)
+    if cfg.family == "ssm":
+        trans = max(trans, 3 * 4 * cfg.n_heads * size["long"] ** 2)
+    peak_a = weights + cache_bytes + served + 2 * 2 * b * p * v + trans
+    if cfg.family == "hybrid":
+        layer = max(sum(t.numel() for name, t in leaves.items()
+                        if name.startswith(kind)) // n
+                    for kind, n in (("attn", cfg.n_layers // 8),
+                                    ("mamba_moe", cfg.n_layers // 2),
+                                    ("mamba_dense", cfg.n_layers * 3 // 8)))
+        peak_b = weights + 4 * layer
+    else:
+        peak_b = 4 * n_params
+    peak_b += 2 * b * size["served"] * v * (4 + 2)
+    return dict(params=n_params, weights_gb=weights / 1e9,
+                cache_gb=cache_bytes / 1e9, state_gb=state_bytes / 1e9,
+                decode_bound_ms=(weights + cache_bytes + state_bytes)
+                / HBM_BYTES_PER_S * 1e3,
+                prefill_bound_ms=prefill_flops / BF16_OPS_PER_S * 1e3,
+                capacity=cap, peak_a_gb=peak_a / 1e9, peak_b_gb=peak_b / 1e9)
+
+
+def _hybrid_f32_logits(torch, params, cfg32, tokens):
+    """The hybrid's teacher-forced logits in f32 from bf16 weights, one
+    layer's weights up-cast at a time, in ``hybrid._group_train``'s order
+    (the jamba cut's f32 copy, 103.7 GB, does not fit the card)."""
+    from repro_torch.models import hybrid as H
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm
+
+    up = functools.partial(L.map_tree, lambda t: t.float())
+    x = params["embed"][tokens].float()
+    for g in range(cfg32.n_layers // cfg32.attn_period):
+        ap = up(L.index(params["attn"], g))
+        x = x + H._attn_train(ap, cfg32, x)
+        x = x + H._dense_ffn(ap, cfg32, x)
+        del ap
+        for kind, i in H._mamba_layers(cfg32):
+            lp = up(L.index(params[kind], g, i))
+            x = x + ssm.mamba_train(lp["mamba"], cfg32, x)
+            x = x + (H._moe_ffn(lp, cfg32, x)[0] if kind == "mamba_moe"
+                     else H._dense_ffn(lp, cfg32, x))
+            del lp
+    x = L.rms_norm(x, params["final_norm"], cfg32.norm_eps)
+    return torch.einsum("bsd,dv->bsv", x, params["lm_head"].float())
+
+
+def _exact_decode(torch, api, cfg32, params, batch, nb: int, nt: int):
+    """f32 decode of ``nb`` requests x ``nt`` tokens against the f32
+    teacher-forced logits of the same tokens: (the largest gap, the
+    teacher-forced batch, its logits)."""
+    from repro_torch.models import encdec
+    from repro_torch.serve import make_decode_step, make_prefill_step
+
+    sub = {k: v[:nb] for k, v in batch.items()}
+    sub["tokens"] = sub["tokens"][:, :nt]
+    want = make_prefill_step(cfg32)(params, sub)
+    cache = api.init_cache(cfg32, nb, nt, want.device)
+    if cfg32.family == "encdec":
+        cache = encdec.encode_prefill(params, cfg32, sub["frames"], cache)
+    step = make_decode_step(cfg32)
+    errs = []
+    for t in range(nt):
+        _, dl, cache = step(params, cache, sub["tokens"][:, t])
+        errs.append((dl - want[:, t, :cfg32.vocab_size]).abs().max())
+    return float(torch.stack(errs).max()), sub, want
+
+
+def _max_gap(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def _serve_family(torch, dev, cfg, size: dict) -> dict:
+    """Phase 9 for one model (``cfg``): (a) in bf16, from seed 0, a timed
+    prefill of 8 x 512 tokens at the published capacity factor (the drops
+    counted), whisper's ``encode_prefill`` of 8 x 1,500 frames timed, the
+    8 prompts' first ``served`` tokens served by the decode step and then
+    ``new`` greedy tokens, twice (tokens bit for bit), each prompt step's
+    logits against a no-drop prefill (capacity E / k) of the same tokens,
+    one decode step profiled; xlstm's 3,000-token prompt through the
+    chunkwise mLSTM against the parallel form, with the sLSTM loop's host
+    time. (b) f32: the same weights up-cast in place (jamba: a layer at a
+    time, since the cut's f32 copy does not fit), the no-drop prefill's gap
+    to f32 (its largest value times ``DECODE_GAP_FACTOR`` bounds the
+    decode-vs-prefill gap of (a) and xlstm's chunkwise-vs-parallel gap),
+    and f32 decode against teacher-forced within 1e-3 (jamba at
+    ``reduced_config``, from seed 0 on the card)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model, encdec, ssm
+    from repro_torch.models import layers as L
+    from repro_torch.serve import make_decode_step, make_prefill_step
+
+    b, p, n, new = size["batch"], size["prompt"], size["served"], size["new"]
+    nb, nt = size["exact"]
+    api = build_model(cfg)
+    plan = family_plan(cfg, size)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_model = t0 = time.perf_counter()
+    params = api.init_params(0, cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    print(f"[lm-families] {cfg.arch_id}: {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, experts {cfg.n_experts}; drawn in {init_s:.2f} s;"
+          f" plan " + json.dumps(plan))
+    rng = np.random.default_rng(9)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                    (b, p)),
+                                       dtype=torch.int32, device=dev)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(
+            (b, cfg.n_frames, cfg.d_model), device=dev,
+            generator=torch.Generator(dev).manual_seed(9))
+    split = {}
+
+    # (a) bf16: the prefill at the published capacity factor
+    t0 = time.perf_counter()
+    prefill = make_prefill_step(cfg)
+    slstm_ms = []
+    drops = {}
+    with _count_drops(drops), _slstm_host(slstm_ms):
+        logits = prefill(params, batch)
+    if (logits.shape != (b, p, cfg.padded_vocab)
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"{cfg.arch_id}: prefill logits "
+                             f"{tuple(logits.shape)} are not all finite or "
+                             f"not [B, P, Vp]")
+    del logits
+    prefill_ms = _wall_ms(torch, lambda: prefill(params, batch), 3)
+    out = dict(arch=cfg.arch_id, plan=plan, init_s=init_s,
+               prefill_ms=float(np.median(prefill_ms)),
+               prefill_tok_s=b * p / (float(np.median(prefill_ms)) / 1e3),
+               moe_pairs=drops.get("pairs", 0),
+               moe_dropped=drops.get("dropped", 0),
+               slstm_host_ms_prefill=sum(slstm_ms))
+    served = {k: v for k, v in batch.items()}
+    served["tokens"] = batch["tokens"][:, :n]
+    cfg_nd = _no_drop(cfg)
+    ref = make_prefill_step(cfg_nd)(params, served)
+    split["prefill"] = time.perf_counter() - t0
+
+    # (a) the decode step, from a fresh cache each pass
+    t0 = time.perf_counter()
+
+    def fresh_cache():
+        cache = api.init_cache(cfg, b, size["max_len"], dev)
+        if cfg.family == "encdec":
+            cache = encdec.encode_prefill(params, cfg, batch["frames"], cache)
+        return cache
+
+    if cfg.family == "encdec":
+        fresh_cache()
+        out["encode_prefill_ms"] = float(np.median(_wall_ms(
+            torch, fresh_cache, 3)))
+    step = make_decode_step(cfg_nd)
+    tokens, _, gap = _serve_prompts(torch, step, params, fresh_cache(),
+                                    served["tokens"], new, prefill=ref)
+    cache = fresh_cache()
+    again, step_ms, _ = _serve_prompts(torch, step, params, cache,
+                                       served["tokens"], new)
+    if not torch.equal(tokens, again):
+        raise AssertionError(f"{cfg.arch_id}: greedy tokens differ between "
+                             f"two passes from the same seed")
+    split["decode"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    last = tokens[:, -1]
+    prof = _call_summary(_profile_calls(lambda: step(params, cache, last),
+                                        torch, reps=LM_PROFILE_REPS))
+    del cache
+    split["profile"] = time.perf_counter() - t0
+    p50 = float(np.percentile(step_ms, 50))
+    out.update(decode_p50_ms=p50,
+               decode_p99_ms=float(np.percentile(step_ms, 99)),
+               decode_tok_s=b / (p50 / 1e3), decode_steps=len(step_ms),
+               decode_device_ms=prof["device_ms"],
+               decode_idle_share=1.0 - prof["device_ms"] / p50,
+               decode_profile=prof)
+
+    if cfg.family == "ssm":
+        t0 = time.perf_counter()
+        long_tok = {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (1, size["long"])),
+            dtype=torch.int32, device=dev)}
+        long_host = []
+        with _slstm_host(long_host):
+            long_logits = prefill(params, long_tok)
+        if not bool(torch.isfinite(long_logits).all()):
+            raise AssertionError("the 3,000-token prefill gave a non-finite "
+                                 "logit")
+        out["long_prefill_ms"] = float(np.median(_wall_ms(
+            torch, lambda: prefill(params, long_tok), 1)))
+        out["slstm_host_ms_long"] = sum(long_host)
+        # the whole model, chunkwise against parallel: reported; the
+        # sLSTM's recurrence carries any rounding difference on along the
+        # prompt (PERF.md section 6)
+        parallel = make_prefill_step(dataclasses.replace(cfg, mlstm_chunk=0))(
+            params, long_tok)
+        out["long_model_chunkwise_vs_parallel"] = _logit_gap(
+            torch, long_logits, parallel, cfg.vocab_size)
+        del long_logits, parallel
+        # held: the first mLSTM block on the prompt's embeddings, both forms
+        x_long = params["embed"][long_tok["tokens"]].to(cfg.cdtype)
+        with torch.inference_mode():
+            long_block = [ssm.mlstm_train(
+                L.index(params["mlstm"], 0, 0), dataclasses.replace(
+                    cfg, mlstm_chunk=chunk), x_long)
+                for chunk in (cfg.mlstm_chunk, 0)]
+        split["long"] = time.perf_counter() - t0
+    out["peak_a_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # (b) f32
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg32 = dataclasses.replace(cfg_nd, param_dtype="float32",
+                                compute_dtype="float32")
+    f32_bound = 1e-3
+    if cfg.family == "hybrid":
+        with torch.inference_mode():
+            want = _hybrid_f32_logits(torch, params, cfg32, served["tokens"])
+        del params
+        cfg_r = dataclasses.replace(_no_drop(reduced_config(cfg.arch_id)),
+                                    param_dtype="float32",
+                                    compute_dtype="float32")
+        api_r = build_model(cfg_r)
+        params = api_r.init_params(0, cfg_r, dev)
+        small = {"tokens": served["tokens"] % cfg_r.vocab_size}
+        out["f32_decode_vs_tf"] = _exact_decode(torch, api_r, cfg_r, params,
+                                                small, nb, nt)[0]
+        out["f32_decode_at"] = "reduced_config"
+    else:
+        _upcast(params, torch.float32)
+        want = make_prefill_step(cfg32)(params, served)
+        err, sub, tf = _exact_decode(torch, api, cfg32, params, served, nb,
+                                     nt)
+        out["f32_decode_vs_tf"] = err
+        out["f32_decode_at"] = "full size"
+        if cfg.family == "ssm":
+            # the same f32 function summed in another order (the chunkwise
+            # mLSTM, four chunks): the deep recurrent model's own f32
+            # noise, which decode vs teacher-forced shows too
+            other = make_prefill_step(dataclasses.replace(
+                cfg32, mlstm_chunk=max(nt // 4, 1)))(params, sub)
+            out["f32_order_gap"] = _max_gap(other, tf)
+            f32_bound = max(f32_bound,
+                            DECODE_GAP_FACTOR * out["f32_order_gap"])
+            del other
+            x32 = params["embed"][long_tok["tokens"]]
+            with torch.inference_mode():
+                block32 = [ssm.mlstm_train(
+                    L.index(params["mlstm"], 0, 0), dataclasses.replace(
+                        cfg32, mlstm_chunk=chunk), x32)
+                    for chunk in (cfg.mlstm_chunk, 0)]
+            out["long_block_f32_chunkwise_vs_parallel"] = _max_gap(*block32)
+            out["long_block_bf16_vs_f32"] = _max_gap(long_block[1],
+                                                     block32[1])
+            out["long_block_bf16_chunkwise_vs_parallel"] = _max_gap(
+                *long_block)
+            del block32, long_block
+        del tf
+    out["f32_bound"] = f32_bound
+    all_gap = _logit_gap(torch, ref, want, cfg.vocab_size)
+    out["bf16_vs_f32"] = all_gap
+    out["peak_b_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, want, ref
+    split["f32"] = time.perf_counter() - t0
+    bound = DECODE_GAP_FACTOR * all_gap["max_abs"]
+    out.update(decode_vs_prefill=float(gap.max()),
+               decode_vs_prefill_bound=bound, split_s=split,
+               model_s=time.perf_counter() - t_model)
+    print("[lm-families] " + json.dumps(out))
+    if not out["f32_decode_vs_tf"] < f32_bound:
+        raise AssertionError(f"{cfg.arch_id}: f32 decode vs teacher-forced "
+                             f"{out['f32_decode_vs_tf']} >= {f32_bound}")
+    if not out["decode_vs_prefill"] <= bound:
+        raise AssertionError(f"{cfg.arch_id}: bf16 decode vs prefill "
+                             f"{out['decode_vs_prefill']} > "
+                             f"{DECODE_GAP_FACTOR} x {all_gap['max_abs']}")
+    if cfg.family == "ssm":
+        if not out["long_block_f32_chunkwise_vs_parallel"] < 1e-3:
+            raise AssertionError(
+                f"the 3,000-token prompt's first mLSTM block in f32, "
+                f"chunkwise vs parallel: "
+                f"{out['long_block_f32_chunkwise_vs_parallel']} >= 1e-3")
+        block_bound = DECODE_GAP_FACTOR * out["long_block_bf16_vs_f32"]
+        if not out["long_block_bf16_chunkwise_vs_parallel"] <= block_bound:
+            raise AssertionError(
+                f"the 3,000-token prompt's first mLSTM block in bf16, "
+                f"chunkwise vs parallel: "
+                f"{out['long_block_bf16_chunkwise_vs_parallel']} > "
+                f"{DECODE_GAP_FACTOR} x its bf16 gap to f32")
+    return out
+
+
+def run_lm_families_path(torch, dev, cuts=FAMILY_CUTS, **size) -> dict:
+    """Phase 9: the LM tower's moe, ssm (xLSTM), encdec and hybrid families
+    through ``make_prefill_step`` / ``make_decode_step`` (and
+    ``encdec.encode_prefill``), each model as ``_serve_family`` says, at
+    the published configs of ``cuts`` with the overrides given there (a
+    rehearsal passes cut ones, and ``size`` cuts the requests). No GUS
+    kernel may launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    size = dict(FAMILY_SIZE, **size)
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    models = [_serve_family(torch, dev, dataclasses.replace(
+        get_config(arch), **cut), size) for arch, cut in cuts]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    torch.cuda.empty_cache()
+    out = dict(models=models, launches=counts,
+               phase_s=time.perf_counter() - t0)
+    print(f"[lm-families] phase 9 in {out['phase_s']:.1f} s; GUS kernel "
+          f"launches {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"the LM families launched GUS kernels: "
+                             f"{counts}")
+    return out
+
+
 SOURCES = {  # kernel -> (CUDA source, TPU kernel it replaces, path)
     "fused_query": ("src/repro_torch/kernels/csrc/fused_query.cu",
                     "src/repro/kernels/fused_query.py:172", "main"),
@@ -2562,6 +3023,7 @@ def main() -> int:
     dryrun = run_dryrun_path(torch, dev)
     report.update(check_dryrun_shapes(torch, dev, dryrun.pop("calls")))
     lm = run_lm_path(torch, dev)
+    families = run_lm_families_path(torch, dev)
 
     path_counts = {"main": main_path["launches"],
                    "configs": configs["launches"],
@@ -2584,7 +3046,7 @@ def main() -> int:
             launches_serve=path_counts["serve"][name],
             launches_sharded=path_counts["sharded"][name],
             launches_dryrun=path_counts["dryrun"][name],
-            launches_lm=lm["launches"][name],
+            launches_lm=lm["launches"][name] + families["launches"][name],
             max_abs_err=rep["max_abs_err"], ms=rep["ms"],
             device_ms=rep["device_ms"], device_calls=rep.get("device_calls"),
             plain_ms=rep["plain_ms"],

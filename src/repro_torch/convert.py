@@ -32,8 +32,8 @@ the reference (the engine's snapshot of record) into the port's, so a port
 engine restores from it (the sharded index's salt included, so it
 re-routes as the reference does); like the port's own snapshots it holds host
 arrays only, and ``restore_state`` puts them on the engine's device.
-``lm_params`` carries the LM tower's params tree (``init_params`` of the
-reference's ``models/transformer.py``, as nested numpy arrays) into the
+``lm_params`` carries the LM tower's params tree (``init_params`` of any
+family of the reference's ``models/``, as nested numpy arrays) into the
 port's dict of tensors.
 """
 from __future__ import annotations
@@ -49,6 +49,7 @@ from repro_torch.ann.sharded_index import ShardedGusIndex
 from repro_torch.core.idf import FilterTable, IdfTable
 from repro_torch.core.maintenance import MaintenanceConfig
 from repro_torch.graph.store import DynamicGraphStore, GraphConfig
+from repro_torch.models import build_model
 from repro_torch.utils.device import resolve
 
 
@@ -179,16 +180,28 @@ def engine_snapshot(ref_state: dict) -> dict:
 
 
 def lm_params(arrays: dict, cfg, device=None) -> dict:
-    """The reference transformer's params tree (nested dicts of numpy
-    arrays of any float dtype, bf16 included) as the port's dict of
-    tensors on ``device``: the norm weights in f32 as the reference keeps
-    them, every other leaf in ``cfg.pdtype``."""
+    """The reference's params tree of ``cfg``'s family (nested dicts of
+    numpy arrays of any float dtype, bf16 included, at any depth) as the
+    port's tree of tensors on ``device``. Each leaf takes its dtype from
+    the port's own ``init_params`` for ``cfg``, built on the ``meta``
+    device (the router, the scans' gate weights and biases and the norms
+    stay f32 where the reference keeps them so); the same template checks
+    every key and shape."""
     dev = resolve(device)
+    template = build_model(cfg).init_params(0, cfg, "meta")
 
-    def leaf(name, a):
-        dtype = torch.float32 if name.endswith("norm") else cfg.pdtype
-        return torch.as_tensor(np.array(a, np.float32), device=dev).to(dtype)
+    def walk(a, t, path):
+        if isinstance(t, dict) != isinstance(a, dict):
+            raise ValueError(f"{path}: a leaf against a subtree")
+        if isinstance(t, dict):
+            if set(a) != set(t):
+                raise ValueError(f"{path}: keys {sorted(a)} != the port's "
+                                 f"{sorted(t)}")
+            return {k: walk(a[k], t[k], f"{path}/{k}") for k in t}
+        a = np.array(a, np.float32)
+        if a.shape != tuple(t.shape):
+            raise ValueError(f"{path}: shape {a.shape} != the port's "
+                             f"{tuple(t.shape)}")
+        return torch.as_tensor(a, device=dev).to(t.dtype)
 
-    return {name: ({k: leaf(k, v) for k, v in a.items()}
-                   if isinstance(a, dict) else leaf(name, a))
-            for name, a in arrays.items()}
+    return walk(arrays, template, "params")

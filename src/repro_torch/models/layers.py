@@ -15,9 +15,15 @@ Conventions, as in the reference:
 
 The reference's sharding anchors (``constrain_act``,
 ``constrain_channels``) and its layer-stack loop (``scan_stack``) have no
-meaning in one torch process and are not here; ``models/transformer.py``
-runs its layers in a Python loop. They belong to the sharding slice
-(ROADMAP.md Queue 1 item 5.4).
+meaning in one torch process and are not here; the models run their
+stacked layers in Python loops over views (``stack_draws`` builds the
+stacks, ``index`` takes one layer's views). They belong to the sharding
+slice (ROADMAP.md Queue 1 item 5.4).
+
+Every init draws from a ``torch.Generator`` on its device; with no
+generator (``gen=None``) it makes empty tensors on the ``meta`` device:
+the params tree's shapes and dtypes without memory (``convert.lm_params``
+takes its template so).
 """
 from __future__ import annotations
 
@@ -27,19 +33,89 @@ import torch.nn.functional as F
 
 # ----------------------------------------------------------------- init
 
+META = torch.device("meta")
 
-def dense_init(gen: torch.Generator, d_in, d_out, dtype,
+
+def gen_device(gen: torch.Generator | None) -> torch.device:
+    """Where ``gen`` draws: its device, or ``meta`` without a generator."""
+    return META if gen is None else gen.device
+
+
+def normal(gen, shape) -> torch.Tensor:
+    """Standard normal f32 draws on ``gen``'s device (empty on ``meta``
+    without a generator)."""
+    if gen is None:
+        return torch.empty(shape, dtype=torch.float32, device=META)
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32)
+
+
+def uniform(gen, shape, lo: float, hi: float) -> torch.Tensor:
+    """U(lo, hi) f32 draws on ``gen``'s device (empty on ``meta`` without
+    a generator)."""
+    if gen is None:
+        return torch.empty(shape, dtype=torch.float32, device=META)
+    return torch.rand(shape, generator=gen, device=gen.device,
+                      dtype=torch.float32) * (hi - lo) + lo
+
+
+def full(gen, shape, value: float, dtype) -> torch.Tensor:
+    """A constant tensor on ``gen``'s device (norm scales, biases)."""
+    return torch.full(shape, value, dtype=dtype, device=gen_device(gen))
+
+
+def dense_init(gen: torch.Generator | None, d_in, d_out, dtype,
                scale: float | None = None):
     """[d_in, d_out] normal * ``scale`` (default ``d_in ** -0.5``), drawn in
     f32 on ``gen``'s device, then cast to ``dtype``."""
     scale = (1.0 / d_in) ** 0.5 if scale is None else scale
-    return (torch.randn((d_in, d_out), generator=gen, device=gen.device,
-                        dtype=torch.float32) * scale).to(dtype)
+    return (normal(gen, (d_in, d_out)) * scale).to(dtype)
 
 
-def embed_init(gen: torch.Generator, vocab, d, dtype):
-    return (torch.randn((vocab, d), generator=gen, device=gen.device,
-                        dtype=torch.float32) * 0.02).to(dtype)
+def embed_init(gen: torch.Generator | None, vocab, d, dtype):
+    return (normal(gen, (vocab, d)) * 0.02).to(dtype)
+
+
+def _put(dst: dict, src: dict, at) -> None:
+    for name, t in src.items():
+        if isinstance(t, dict):
+            _put(dst[name], t, at)
+        else:
+            dst[name][at] = t
+
+
+def stack_draws(draw, lead: tuple) -> dict:
+    """The reference's stacked params: ``draw()`` (one layer's params
+    tree) called once per index of ``lead`` and each tree cast into its
+    slot of [*lead, ...] tensors, allocated at the first draw, so the
+    largest temporary is one layer, never a copy of the stack."""
+    out = None
+    for at in np.ndindex(*lead):
+        one = draw()
+        if out is None:
+            out = map_tree(lambda t: torch.empty(
+                (*lead, *t.shape), dtype=t.dtype, device=t.device), one)
+        _put(out, one, at)
+        del one
+    return out
+
+
+def map_tree(fn, tree):
+    """``fn`` over every tensor of a nested dict."""
+    return {name: (map_tree(fn, t) if isinstance(t, dict) else fn(t))
+            for name, t in tree.items()}
+
+
+def tile(tree: dict, lead: tuple) -> dict:
+    """Copies of every tensor of a tree (one layer's state), stacked
+    [*lead, ...]."""
+    return map_tree(lambda t: t.expand(*lead, *t.shape).clone(), tree)
+
+
+def index(tree: dict, *at) -> dict:
+    """The views ``t[at]`` of every tensor of a stacked tree: one layer's
+    params or state, sharing memory with the stack."""
+    return map_tree(lambda t: t[at], tree)
 
 
 # ----------------------------------------------------------------- norms

@@ -7,20 +7,19 @@ the architectures.
     cache = api.init_cache(cfg, batch_size, max_len, device)
     logits, cache = api.decode_step(params, cfg, batch, cache)
 
-The dense and vlm families are ported (``models/transformer.py``); moe,
-ssm, hybrid and encdec raise ``NotImplementedError`` until ROADMAP.md
-Queue 1 item 5.2. The reference's ``input_specs``, ``cache_specs`` and
-``params_specs`` are dry-run machinery and come with item 5.4.
+The dense, moe and vlm families run ``models/transformer.py``, ssm
+``models/xlstm.py``, hybrid ``models/hybrid.py`` and encdec
+``models/encdec.py`` (whose caller fills the cross-attention cache with
+``encdec.encode_prefill`` before decoding). The reference's
+``input_specs``, ``cache_specs`` and ``params_specs`` are dry-run
+machinery and come with ROADMAP.md Queue 1 item 5.4.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
-
-NOT_PORTED = ("the {} family is not ported yet: ROADMAP.md Queue 1 "
-              "item 5.2")
+from repro_torch.models import encdec, hybrid, transformer, xlstm
 
 
 class ModelApi(NamedTuple):
@@ -32,10 +31,14 @@ class ModelApi(NamedTuple):
 
 
 def build_model(cfg: ModelConfig) -> ModelApi:
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family in ("dense", "moe", "vlm"):
         m = transformer
-    elif cfg.family in ("moe", "ssm", "hybrid", "encdec"):
-        raise NotImplementedError(NOT_PORTED.format(cfg.family))
+    elif cfg.family == "ssm":
+        m = xlstm
+    elif cfg.family == "hybrid":
+        m = hybrid
+    elif cfg.family == "encdec":
+        m = encdec
     else:
         raise ValueError(f"unknown family {cfg.family}")
     return ModelApi(m.init_params, m.apply, m.features, m.init_cache,

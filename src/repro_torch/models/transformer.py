@@ -1,12 +1,11 @@
-"""Decoder-only transformer of the dense and vlm families (port of
-``repro/models/transformer.py``; the moe FFN is ROADMAP.md Queue 1 item
-5.2).
+"""Decoder-only transformer of the dense, moe and vlm families (port of
+``repro/models/transformer.py``).
 
 One implementation, config-driven: GQA (+ optional qk_norm), RoPE or
-M-RoPE (vlm), swiglu FFN, optional biases. The params dict has the
-reference's keys and layout: blocks are stacked [L, ...], and the layers
-run in a Python loop over ``params["blocks"][name][i]`` views (no remat:
-this is the serving path).
+M-RoPE (vlm), swiglu FFN or MoE FFN (``models/moe.py``), optional biases.
+The params dict has the reference's keys and layout: blocks are stacked
+[L, ...], and the layers run in a Python loop over ``params["blocks"]``
+views (no remat: this is the serving path).
 
 Entry points, as in the reference:
   apply(params, cfg, batch)                 -> (logits, aux)   # teacher-forced
@@ -22,66 +21,75 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.utils.device import resolve
-
-MOE_NOT_PORTED = ("the moe FFN is not ported yet: ROADMAP.md Queue 1 "
-                  "item 5.2")
 
 
 # ------------------------------------------------------------------- init
 
-def init_block(gen: torch.Generator, cfg) -> dict:
-    """One layer's params, drawn from ``gen`` on its device."""
-    if cfg.family == "moe":
-        raise NotImplementedError(MOE_NOT_PORTED)
+def init_attn(gen, cfg) -> dict:
+    """The attention's params and both pre-norms (those of a dense layer
+    without its FFN), drawn from ``gen`` on its device."""
     d, hkv, dh = cfg.d_model, cfg.n_kv_heads, cfg.head_dim_
     h = cfg.n_heads
-    dev = gen.device
+    f32 = torch.float32
     p = {
-        "attn_norm": torch.ones((d,), dtype=torch.float32, device=dev),
+        "attn_norm": L.full(gen, (d,), 1.0, f32),
         "wq": L.dense_init(gen, d, h * dh, cfg.pdtype).reshape(d, h, dh),
         "wk": L.dense_init(gen, d, hkv * dh, cfg.pdtype).reshape(d, hkv, dh),
         "wv": L.dense_init(gen, d, hkv * dh, cfg.pdtype).reshape(d, hkv, dh),
         "wo": L.dense_init(gen, h * dh, d, cfg.pdtype).reshape(h, dh, d),
-        "ffn_norm": torch.ones((d,), dtype=torch.float32, device=dev),
+        "ffn_norm": L.full(gen, (d,), 1.0, f32),
     }
     if cfg.qk_norm:
-        p["q_norm"] = torch.ones((dh,), dtype=torch.float32, device=dev)
-        p["k_norm"] = torch.ones((dh,), dtype=torch.float32, device=dev)
+        p["q_norm"] = L.full(gen, (dh,), 1.0, f32)
+        p["k_norm"] = L.full(gen, (dh,), 1.0, f32)
     if cfg.use_bias:
-        p["bq"] = torch.zeros((h, dh), dtype=cfg.pdtype, device=dev)
-        p["bk"] = torch.zeros((hkv, dh), dtype=cfg.pdtype, device=dev)
-        p["bv"] = torch.zeros((hkv, dh), dtype=cfg.pdtype, device=dev)
-        p["bo"] = torch.zeros((d,), dtype=cfg.pdtype, device=dev)
-    p["gate"] = L.dense_init(gen, d, cfg.d_ff, cfg.pdtype)
-    p["up"] = L.dense_init(gen, d, cfg.d_ff, cfg.pdtype)
-    p["down"] = L.dense_init(gen, cfg.d_ff, d, cfg.pdtype)
+        p["bq"] = L.full(gen, (h, dh), 0.0, cfg.pdtype)
+        p["bk"] = L.full(gen, (hkv, dh), 0.0, cfg.pdtype)
+        p["bv"] = L.full(gen, (hkv, dh), 0.0, cfg.pdtype)
+        p["bo"] = L.full(gen, (d,), 0.0, cfg.pdtype)
     return p
+
+
+def init_dense_ffn(gen, cfg) -> dict:
+    return {"gate": L.dense_init(gen, cfg.d_model, cfg.d_ff, cfg.pdtype),
+            "up": L.dense_init(gen, cfg.d_model, cfg.d_ff, cfg.pdtype),
+            "down": L.dense_init(gen, cfg.d_ff, cfg.d_model, cfg.pdtype)}
+
+
+def init_block(gen, cfg) -> dict:
+    """One layer's params, drawn from ``gen`` on its device."""
+    p = init_attn(gen, cfg)
+    if cfg.family == "moe":
+        p["moe"] = init_moe(gen, cfg)
+    else:
+        p.update(init_dense_ffn(gen, cfg))
+    return p
+
+
+def generator(seed: int, device=None) -> torch.Generator | None:
+    """A generator seeded with ``seed`` on ``device`` (the card unless the
+    caller passes ``"cpu"``); ``None`` on ``meta``, where the inits make
+    empty tensors."""
+    dev = resolve(device)
+    return None if dev.type == "meta" else torch.Generator(dev).manual_seed(
+        seed)
 
 
 def init_params(seed: int, cfg, device=None) -> dict:
     """The reference's params tree at ``cfg``'s shapes, dtypes and scales,
     drawn from a ``torch.Generator`` seeded with ``seed`` on ``device``
-    (the card unless the caller passes ``"cpu"``). Each layer is drawn in
-    f32 and cast into its slot of the stacked [L, ...] tensors, so the
-    largest f32 temporary is one tensor (the embed at full width), never a
-    copy of the model."""
-    gen = torch.Generator(resolve(device)).manual_seed(seed)
-    blocks = None
-    for i in range(cfg.n_layers):
-        one = init_block(gen, cfg)
-        if blocks is None:
-            blocks = {name: torch.empty((cfg.n_layers, *t.shape),
-                                        dtype=t.dtype, device=t.device)
-                      for name, t in one.items()}
-        for name, t in one.items():
-            blocks[name][i] = t
-        del one
+    (the card unless the caller passes ``"cpu"``; ``"meta"`` gives the
+    tree without memory). Each layer is drawn in f32 and cast into its
+    slot of the stacked [L, ...] tensors, so the largest f32 temporary is
+    one tensor (the embed at full width), never a copy of the model."""
+    gen = generator(seed, device)
+    blocks = L.stack_draws(lambda: init_block(gen, cfg), (cfg.n_layers,))
     return {
         "embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model, cfg.pdtype),
         "blocks": blocks,
-        "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32,
-                                 device=gen.device),
+        "final_norm": L.full(gen, (cfg.d_model,), 1.0, torch.float32),
         "lm_head": L.dense_init(gen, cfg.d_model, cfg.padded_vocab,
                                 cfg.pdtype),
     }
@@ -89,7 +97,7 @@ def init_params(seed: int, cfg, device=None) -> dict:
 
 def layer(params, i: int) -> dict:
     """Layer ``i``'s params: views into the stacked blocks."""
-    return {name: t[i] for name, t in params["blocks"].items()}
+    return L.index(params["blocks"], i)
 
 
 # -------------------------------------------------------------- attention
@@ -140,13 +148,19 @@ def attention_decode(p, cfg, x, cos, sin, k_cache, v_cache, cache_len):
     q, k, v = _project_qkv(p, cfg, h)
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
-    b = x.shape[0]
-    rows = torch.arange(b, device=x.device)
-    at = torch.clamp(cache_len, max=k_cache.shape[1] - 1)
-    k_cache[rows, at] = k[:, 0]
-    v_cache[rows, at] = v[:, 0]
+    write_rows(k_cache, k, cache_len)
+    write_rows(v_cache, v, cache_len)
     ctx = L.decode_attention(q, k_cache, v_cache, cache_len + 1)
     return _attn_out(p, cfg, ctx), k_cache, v_cache
+
+
+def write_rows(cache, new, cache_len) -> None:
+    """``new`` [B, 1, ...] into ``cache`` [B, Smax, ...] at each sample's
+    ``cache_len``, in place, clamped to the last row as the reference's
+    ``dynamic_update_slice`` clamps its start."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    at = torch.clamp(cache_len, max=cache.shape[1] - 1)
+    cache[rows, at] = new[:, 0].to(cache.dtype)
 
 
 # ------------------------------------------------------------------ block
@@ -154,7 +168,7 @@ def attention_decode(p, cfg, x, cos, sin, k_cache, v_cache, cache_len):
 def _ffn(p, cfg, x):
     h = L.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
     if cfg.family == "moe":
-        raise NotImplementedError(MOE_NOT_PORTED)
+        return moe_ffn(p["moe"], cfg, h)
     return L.swiglu(h, p["gate"], p["up"], p["down"]), 0.0
 
 

@@ -36,6 +36,7 @@ from repro_torch.core.scorer import (pair_feature_dim, pair_features,
 from repro_torch.data.stream import MutationStream, StreamConfig
 from repro_torch.data.synthetic import (OGB_ARXIV_LIKE, labeled_pairs,
                                         make_dataset)
+from repro_torch.models import encdec, hybrid, ssm, xlstm
 from repro_torch.models.transformer import init_cache as lm_init_cache
 from repro_torch.models.transformer import init_params as lm_init_params
 
@@ -48,6 +49,10 @@ SCANN = dict(d_proj=64, n_partitions=16, nprobe=10, reorder=128)
 # training need not converge: few iterations keep its eager loops short
 TRAIN_FAST = dict(kmeans_iters=3, pq_iters=2)
 LM_CFG = reduced_config("qwen3-8b")
+MOE_CFG = reduced_config("qwen2-moe-a2.7b")
+XLSTM_CFG = reduced_config("xlstm-1.3b")
+ENCDEC_CFG = reduced_config("whisper-tiny")
+HYBRID_CFG = reduced_config("jamba-1.5-large-398b")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -225,6 +230,21 @@ def test_card_is_the_default_device():
         lambda: lm_init_params(0, LM_CFG),
         lambda: lm_init_cache(LM_CFG, 1, 4),
         lambda: convert.lm_params({"embed": np.zeros((4, 2))}, LM_CFG),
+        lambda: lm_init_params(0, MOE_CFG),
+        lambda: lm_init_cache(MOE_CFG, 1, 4),
+        lambda: xlstm.init_params(0, XLSTM_CFG),
+        lambda: xlstm.init_cache(XLSTM_CFG, 1, 4),
+        lambda: encdec.init_params(0, ENCDEC_CFG),
+        lambda: encdec.init_cache(ENCDEC_CFG, 1, 4),
+        # the encoder's cross K/V go into a cache made on the default device
+        lambda: encdec.encode_prefill(None, ENCDEC_CFG, None,
+                                      encdec.init_cache(ENCDEC_CFG, 1, 4)),
+        lambda: hybrid.init_params(0, HYBRID_CFG),
+        lambda: hybrid.init_cache(HYBRID_CFG, 1, 4),
+        lambda: ssm.mlstm_cache(XLSTM_CFG, 1),
+        lambda: ssm.slstm_cache(XLSTM_CFG, 1),
+        lambda: ssm.mamba_cache(HYBRID_CFG, 1),
+        lambda: convert.lm_params({}, HYBRID_CFG),
     ]
     for call in entry_points:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -277,7 +297,7 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 76
+    assert len(names) >= 81
     assert {f"repro_torch.{m}" for m in (
         "graph", "graph.store", "graph.cc", "core.graph", "core.grale",
         "ann.sharded", "ann.sharded_index", "launch.mesh", "launch.dryrun",
@@ -287,4 +307,5 @@ def test_port_imports_no_jax_and_no_reference():
         "serve.serve_step", "launch", "launch.serve", "configs",
         "configs.base", "configs.registry", "configs.qwen3_8b",
         "configs.qwen2_vl_7b", "configs.whisper_tiny", "models",
-        "models.layers", "models.transformer", "models.model")} <= names
+        "models.layers", "models.transformer", "models.model", "models.moe",
+        "models.ssm", "models.xlstm", "models.encdec", "models.hybrid")} <= names

@@ -1,6 +1,8 @@
 """The LM tower's dense serving path of the port (``repro_torch.configs``,
 ``models/layers.py``, ``models/transformer.py``, ``models/model.py``,
-``serve/serve_step.py``) against the JAX reference on the CPU.
+``serve/serve_step.py``) against the JAX reference on the CPU, and
+``build_model`` / ``init_params`` / ``convert.lm_params`` for every family
+(the families' own paths: ``tests/test_torch_{moe,ssm,encdec,hybrid}.py``).
 
 Inputs come from numpy seeds; the reference's ``init_params`` is carried
 across with ``convert.lm_params``, one module-wide set per configuration.
@@ -24,11 +26,12 @@ from repro.configs import base as RB
 from repro.configs import registry as RR
 from repro.models import layers as RL
 from repro.models import transformer as RT
+from repro.models.model import build_model as ref_build
 from repro.serve import serve_step as RS
 from repro_torch import convert
 from repro_torch.configs import base as PB
 from repro_torch.configs import registry as PR
-from repro_torch.models import build_model
+from repro_torch.models import build_model, encdec
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.serve import make_decode_step, make_prefill_step
@@ -493,13 +496,66 @@ def test_init_params_shapes_dtypes_and_scales():
     assert bool((got["final_norm"] == 1).all())
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b",
-                                  "xlstm-1.3b", "jamba-1.5-large-398b",
-                                  "whisper-tiny"])
-def test_unported_families_raise(arch):
+@pytest.mark.parametrize("arch", sorted(RR.ARCHS))
+def test_build_model_for_every_family(arch):
+    """``build_model`` and ``init_params`` at ``reduced_config`` on the
+    CPU for all ten architectures (every family); the tree, shapes and
+    dtypes are the reference's, on ``meta`` too, and one decode step gives
+    finite logits [B, Vp]."""
     cfg = PR.reduced_config(arch)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5.2"):
-        build_model(cfg)
-    if cfg.family == "moe":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5.2"):
-            T.init_params(0, cfg, CPU)
+    api = build_model(cfg)
+    rcfg = RR.reduced_config(arch)
+    want = jax.eval_shape(lambda: ref_build(rcfg).init_params(
+        jax.random.PRNGKey(0), rcfg))
+    flat_want = {jax.tree_util.keystr(p): a for p, a in
+                 jax.tree_util.tree_flatten_with_path(want)[0]}
+    for dev in ("cpu", "meta"):
+        got = api.init_params(0, cfg, dev)
+        flat_got = {jax.tree_util.keystr(p): a for p, a in
+                    jax.tree_util.tree_flatten_with_path(got)[0]}
+        assert flat_got.keys() == flat_want.keys()
+        for name, a in flat_want.items():
+            assert tuple(flat_got[name].shape) == a.shape, name
+            assert str(flat_got[name].dtype) == f"torch.{a.dtype.name}", name
+            assert flat_got[name].device.type == dev, name
+    params = api.init_params(0, cfg, CPU)
+    cache = api.init_cache(cfg, 2, 4, CPU)
+    if cfg.family == "encdec":
+        cache = encdec.encode_prefill(
+            params, cfg, torch.zeros((2, cfg.n_frames, cfg.d_model)), cache)
+    logits, cache = api.decode_step(
+        params, cfg, {"tokens": torch.tensor([1, 2], dtype=torch.int32)},
+        cache)
+    assert logits.shape == (2, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits).all())
+    assert cache["len"].tolist() == [1, 1]
+
+
+@pytest.mark.parametrize("arch", sorted(RR.ARCHS))
+def test_lm_params_for_every_family(arch):
+    """``convert.lm_params`` walks every family's tree at any depth: with
+    bf16 params, each leaf has the reference's shape and dtype (the
+    router, the gate weights and biases of the scans and the norms stay
+    f32) and its values exactly; a wrong shape or key raises."""
+    rcfg = dataclasses.replace(RR.reduced_config(arch),
+                               param_dtype="bfloat16")
+    pcfg = dataclasses.replace(PR.reduced_config(arch),
+                               param_dtype="bfloat16")
+    ref = ref_build(rcfg).init_params(jax.random.PRNGKey(1), rcfg)
+    arrays = jax.tree.map(np.asarray, ref)
+    got = convert.lm_params(arrays, pcfg, CPU)
+    flat_ref = {jax.tree_util.keystr(p): a for p, a in
+                jax.tree_util.tree_flatten_with_path(arrays)[0]}
+    flat_got = {jax.tree_util.keystr(p): a for p, a in
+                jax.tree_util.tree_flatten_with_path(got)[0]}
+    assert flat_got.keys() == flat_ref.keys()
+    for name, a in flat_ref.items():
+        assert tuple(flat_got[name].shape) == a.shape, name
+        assert str(flat_got[name].dtype) == f"torch.{a.dtype.name}", name
+        np.testing.assert_array_equal(flat_got[name].float().numpy(),
+                                      np.asarray(a, np.float32))
+    bad = dict(arrays, lm_head=arrays["lm_head"][:, :-1])
+    with pytest.raises(ValueError, match="lm_head"):
+        convert.lm_params(bad, pcfg, CPU)
+    with pytest.raises(ValueError, match="keys"):
+        convert.lm_params(dict(arrays, extra=arrays["lm_head"]), pcfg, CPU)

@@ -135,13 +135,28 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    time): the bf16 prefill's gap to f32 bounds (a)'s gaps as in phase 8,
    and f32 decode against teacher-forced within 1e-3 (jamba at its
    ``reduced_config``). It must launch none of the GUS kernels;
-10. print one JSON line with each kernel's numbers (with its launches on
+10. training (run after phase 9; ``run_train_path``; ``[train]`` lines):
+   (a) qwen3-8b at full width and depth (8.19 B params) in bf16 with bf16
+   moments (the one cut: f32 moments do not fit beside the params and
+   grads), its 2 microbatches, 6 AdamW steps on one 8 x 512 batch of
+   ``MarkovTokens``: the memory estimate from the ``meta`` device beside
+   the card's, the loss finite and falling, the pre-clip grad norm in 2
+   microbatches within 1% of one microbatch's, one step profiled, the
+   sliced AdamW update bit for bit the whole-leaf formula, step wall,
+   tokens/s, model-FLOP share and peak GB; (b) qwen2-moe, qwen2-vl,
+   xlstm, whisper and jamba at ``reduced_config``, 3 steps each with the
+   loss falling; (c) ``launch/train.py --reduced`` for qwen3-8b, 4 steps
+   straight equal to 2, ``--resume`` and 2 more, bit for bit; (d) the
+   compressed data-parallel step (int8 codes, error feedback) at 2
+   shards, the loss falling. It must launch none of the GUS kernels;
+11. print one JSON line with each kernel's numbers (with its launches on
    each path, ``launches_serve`` the serving phase's,
    ``launches_sharded`` the sharded phase's, ``launches_dryrun`` the
-   dry-run's and ``launches_lm`` the LM tower's (phases 8 and 9), all
-   0), then the result line.
+   dry-run's, ``launches_lm`` the LM tower's (phases 8 and 9) and
+   ``launches_train`` the training phase's, all 0), then the result
+   line.
 
-Phases 2-4, 6, 6s, 5m, 7, 8 and 9 each zero the kernel launch counts just
+Phases 2-4, 6, 6s, 5m, 7, 8, 9 and 10 each zero the kernel launch counts just
 before they start and read them just after; every kernel a phase runs
 must have launched in it. The index paths reach the exact rescore through
 ``sparse_rescore_topk`` and pair scoring through ``pair_score``, so
@@ -2952,6 +2967,336 @@ def run_lm_families_path(torch, dev, cuts=FAMILY_CUTS, **size) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 10
+
+# phase 10 (a): qwen3-8b trained at full width and depth. The one cut is
+# bf16 moments: f32 moments (8 bytes a param, 65.5 GB) next to the bf16
+# params and grads (32.8 GB) do not fit 80 GB.
+TRAIN_SIZE = dict(batch=8, seq=512, steps=6, lr=1e-4, moments="bfloat16",
+                  profile_reps=2, family_batch=4, family_seq=64,
+                  family_steps=3, cli_steps=4)
+TRAIN_FAMILIES = ("qwen2-moe-a2.7b", "qwen2-vl-7b", "xlstm-1.3b",
+                  "whisper-tiny", "jamba-1.5-large-398b")
+NORM_GAP = 0.01          # the microbatch 1 vs 2 pre-clip grad norm, relative
+
+
+def train_plan(cfg, size: dict = TRAIN_SIZE) -> dict:
+    """Phase 10 (a)'s memory and time bounds for ``cfg``, from its params
+    on the ``meta`` device (runs on any machine). Peak: the params and the
+    gradient tree in the param dtype, the two moments in the moment dtype,
+    and on top of them, during a microbatch's backward: the layer inputs
+    the checkpoints keep (one [T, d] a layer), one layer's recompute and
+    backward (three f32 [B, H, S, S] attention tensors, six [T, ff] FFN
+    tensors in the compute dtype, ten f32 [T, d] ones), the CE chunk's
+    logits (compute dtype, f32, the softmax's f32 gradient and the f32
+    input logsumexp keeps: 14 bytes a logit) and the optimizer's slice
+    temporaries (six f32 slices of 2^26). Bound: the products, 8 x params
+    x tokens (forward 2, backward 4, the checkpoints' recompute 2) over
+    the bf16 peak, and the optimizer's traffic (params, m, v read and
+    written, grads read) over the memory rate."""
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import moment_dtype
+    from repro_torch.utils.tree import SLICE, leaves
+
+    params = build_model(cfg).init_params(0, cfg, "meta")
+    n = sum(t.numel() for t in leaves(params))
+    pb = sum(t.numel() * t.element_size() for t in leaves(params))
+    mb = 2 * n * moment_dtype(size["moments"]).itemsize
+    micro = size["batch"] // max(cfg.microbatches, 1)
+    t, s, cb = micro * size["seq"], size["seq"], cfg.cdtype.itemsize
+    kept = cfg.n_layers * t * cfg.d_model * cb
+    layer = (3 * 4 * micro * cfg.n_heads * s * s + 6 * t * cfg.d_ff * cb
+             + 10 * 4 * t * cfg.d_model)
+    ce = t * cfg.padded_vocab * (cb + 3 * 4)
+    opt = 6 * 4 * SLICE
+    tokens = size["batch"] * size["seq"]
+    products_s = 8 * n * tokens / BF16_OPS_PER_S
+    opt_bytes = 2 * pb + pb + 2 * mb      # params r/w, grads r, m and v r/w
+    return dict(params=n, params_gb=pb / 1e9, grads_gb=pb / 1e9,
+                moments_gb=mb / 1e9, kept_gb=kept / 1e9, layer_gb=layer / 1e9,
+                ce_gb=ce / 1e9, opt_gb=opt / 1e9,
+                peak_gb=(2 * pb + mb + kept + layer + ce + opt) / 1e9,
+                products_s=products_s, opt_bytes_gb=opt_bytes / 1e9,
+                opt_s=opt_bytes / HBM_BYTES_PER_S,
+                bound_s=products_s + opt_bytes / HBM_BYTES_PER_S)
+
+
+def _sliced_update_check(torch, leaf) -> dict:
+    """``adamw_update`` on a copy of ``leaf`` (bf16 params, grads and
+    moments from a seeded generator) against ``update_leaf`` on the whole
+    leaf: the params and moments bit for bit, and how many slices the
+    update took."""
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
+                                             step_scalars, update_leaf)
+    from repro_torch.utils.tree import flat_slices
+
+    gen = torch.Generator(leaf.device).manual_seed(10)
+    draw = lambda s: (torch.randn(leaf.shape, generator=gen,
+                                  device=leaf.device) * s).to(leaf.dtype)
+    cfg = AdamWConfig(lr=1e-4, weight_decay=0.01, clip_norm=None,
+                      moment_dtype=leaf.dtype)
+    p, g = leaf.clone(), draw(1e-3)
+    m, v = draw(1e-3), draw(1e-3).abs()
+    state = {"step": torch.tensor(3, dtype=torch.int32, device=leaf.device),
+             "m": {"w": m.clone()}, "v": {"w": v.clone()}}
+    k = step_scalars(state["step"] + 1, cfg)
+    whole = [p.clone(), m, v]
+    update_leaf(whole[0], g, whole[1], whole[2], k, cfg.weight_decay,
+                cfg.eps)
+    params, state, _ = adamw_update({"w": g}, state, {"w": p}, cfg)
+    got = [params["w"], state["m"]["w"], state["v"]["w"]]
+    same = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+               for a, b in zip(got, whole))
+    return dict(shape=list(leaf.shape), slices=len(flat_slices(p)),
+                bitwise=same)
+
+
+def _train_batch(torch, cfg, batch: int, seq: int, dev, seed: int = 0):
+    """One batch of ``MarkovTokens`` at ``cfg``'s vocab (the vlm family's
+    stub extras, encdec's seeded frames), as tensors on ``dev``."""
+    from repro_torch.data.tokens import MarkovTokens, TokenDataConfig
+    from repro_torch.launch.train import vlm_extras
+
+    host = next(MarkovTokens(TokenDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, batch_size=batch,
+        seed=seed)).batches(1))
+    out = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    if cfg.family == "vlm":
+        out.update(vlm_extras(cfg, out, dev))
+    if cfg.family == "encdec":
+        rng = np.random.default_rng(seed)
+        out["frames"] = torch.as_tensor(rng.normal(
+            size=(batch, cfg.n_frames, cfg.d_model)), dtype=torch.float32,
+            device=dev)
+    return out
+
+
+def _falls(losses: list) -> bool:
+    return all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+def _train_full(torch, dev, cfg, size: dict) -> dict:
+    """Phase 10 (a), as ``run_train_path`` says."""
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_step import (accumulate_grads,
+                                              make_loss_fn, make_train_step)
+    from repro_torch.utils.tree import global_norm
+
+    plan = train_plan(cfg, size)
+    total_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9 \
+        if dev.type == "cuda" else float("nan")
+    print(f"[train] {cfg.arch_id}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"vocab {cfg.vocab_size}, {plan['params']:,} params, "
+          f"microbatches {cfg.microbatches}, {size['moments']} moments; "
+          f"estimate (meta device): params {plan['params_gb']:.2f} + grads "
+          f"{plan['grads_gb']:.2f} + moments {plan['moments_gb']:.2f} + "
+          f"kept inputs {plan['kept_gb']:.2f} + a layer "
+          f"{plan['layer_gb']:.2f} + CE chunk {plan['ce_gb']:.2f} + "
+          f"optimizer slices {plan['opt_gb']:.2f} = peak "
+          f"{plan['peak_gb']:.2f} GB of the card's {total_gb:.2f} GB")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = build_model(cfg).init_params(0, cfg, dev)
+    batch = _train_batch(torch, cfg, size["batch"], size["seq"], dev)
+    # the pre-clip grad norm in one microbatch, before the moments exist
+    one = dataclasses.replace(cfg, microbatches=1)
+    grads, _ = accumulate_grads(make_loss_fn(one), params, [batch])
+    norm_1 = float(global_norm(grads))
+    del grads
+    opt_cfg = AdamWConfig(lr=size["lr"], weight_decay=0.01, clip_norm=1.0,
+                          moment_dtype=size["moments"])
+    state = adamw_init(params, opt_cfg)
+    step = make_train_step(cfg, opt_cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses, norms, wall_ms = [], [], []
+    for _ in range(size["steps"]):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))      # a host read: the step is done
+        wall_ms.append((time.perf_counter() - t1) * 1e3)
+        norms.append(float(m["grad_norm"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    holder = [state]
+
+    def one_step():
+        _, holder[0], _ = step(params, holder[0], batch)
+
+    prof = _call_summary(_profile_calls(one_step, torch,
+                                        reps=size["profile_reps"]))
+    sliced = _sliced_update_check(torch, params["blocks"]["gate"][:3])
+    del params, state, holder, batch
+    torch.cuda.empty_cache()
+    p50 = float(np.percentile(wall_ms[1:], 50))
+    tokens = size["batch"] * size["seq"]
+    out = dict(arch=cfg.arch_id, params=plan["params"], plan=plan,
+               card_gb=total_gb, peak_gb=peak_gb, setup_s=setup_s,
+               losses=losses, grad_norms=norms, grad_norm_micro1=norm_1,
+               grad_norm_gap=abs(norms[0] - norm_1) / norm_1,
+               ln_vocab=float(np.log(cfg.vocab_size)), step_ms=wall_ms,
+               step_p50_ms=p50, tokens_per_s=tokens / (p50 / 1e3),
+               model_flop_share=8 * plan["params"] * tokens
+               / (p50 / 1e3) / BF16_OPS_PER_S,
+               bound_ms=plan["bound_s"] * 1e3,
+               products_bound_ms=plan["products_s"] * 1e3,
+               optimizer_bound_ms=plan["opt_s"] * 1e3,
+               device_ms=prof["device_ms"], records=prof["records"],
+               profiled_calls=prof["calls"], top=prof["top"],
+               idle_share=1.0 - prof["device_ms"] / p50, sliced=sliced)
+    print("[train] " + json.dumps(out))
+    if not _falls(losses):
+        raise AssertionError(f"qwen3-8b's loss is not finite or did not "
+                             f"fall over {size['steps']} steps: {losses}")
+    if not out["grad_norm_gap"] <= NORM_GAP:
+        raise AssertionError(f"grad norm in 2 microbatches {norms[0]} vs 1 "
+                             f"{norm_1}: {out['grad_norm_gap']} > {NORM_GAP}")
+    if not sliced["bitwise"] or sliced["slices"] < 2:
+        raise AssertionError(f"the sliced AdamW update: {sliced}")
+    return out
+
+
+def _train_families(torch, dev, size: dict) -> dict:
+    """Phase 10 (b): each of ``TRAIN_FAMILIES`` at ``reduced_config`` in
+    f32, ``family_steps`` steps on one batch; the loss must fall."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+
+    out = {}
+    for arch in TRAIN_FAMILIES:
+        cfg = reduced_config(arch)
+        opt_cfg = AdamWConfig(lr=1e-3, weight_decay=0.01)
+        params, state = init_train_state(0, cfg, opt_cfg, dev)
+        batch = _train_batch(torch, cfg, size["family_batch"],
+                             size["family_seq"], dev)
+        step = make_train_step(cfg, opt_cfg)
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(size["family_steps"]):
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+        out[arch] = dict(losses=losses, moe_aux=float(m["moe_aux"]),
+                         seconds=time.perf_counter() - t0)
+        if not _falls(losses):
+            raise AssertionError(f"{arch}: the loss did not fall: {losses}")
+    print("[train] families " + json.dumps(out))
+    return out
+
+
+def _train_cli(torch, dev, size: dict) -> dict:
+    """Phase 10 (c): ``launch/train.py --reduced`` for qwen3-8b on the
+    card, ``cli_steps`` straight against half of them, ``--resume``, then
+    the rest: the later steps' metrics and the last checkpoint bit for
+    bit. The checkpoints go under ``results/train/`` (gitignored) and are
+    removed."""
+    import shutil
+
+    from repro_torch.launch import train as cli
+
+    root = Path(__file__).resolve().parent / "results" / "train"
+    shutil.rmtree(root, ignore_errors=True)
+    n, half = size["cli_steps"], size["cli_steps"] // 2
+    args = ["--arch", "qwen3-8b", "--reduced", "--batch", "8", "--seq",
+            "128", "--ckpt-every", str(half), "--device", str(dev)]
+    t0 = time.perf_counter()
+    run = lambda *extra: cli.run(cli.parse_args([*args, *extra]))
+    straight = run("--steps", str(n), "--ckpt", str(root / "a"))
+    first = run("--steps", str(half), "--ckpt", str(root / "b"))
+    resumed = run("--steps", str(n), "--ckpt", str(root / "b"), "--resume")
+    last = f"step_{n:08d}/shard_0.npz"
+    with np.load(root / "a" / last) as a, np.load(root / "b" / last) as b:
+        same_ckpt = a.files == b.files and all(
+            a[k].tobytes() == b[k].tobytes() for k in a.files)
+    shutil.rmtree(root, ignore_errors=True)
+    out = dict(losses=[m["loss"] for m in straight],
+               resumed_equal=resumed == straight[half:]
+               and first == straight[:half],
+               checkpoint_equal=same_ckpt,
+               seconds=time.perf_counter() - t0)
+    print("[train] cli " + json.dumps(out))
+    if not (out["resumed_equal"] and same_ckpt):
+        raise AssertionError(f"--resume is not bitwise: {out}")
+    return out
+
+
+def _train_dp(torch, dev, size: dict) -> dict:
+    """Phase 10 (d): the compressed data-parallel step (int8 codes, error
+    feedback) at 2 shards of one mesh on the card, reduced qwen3-8b, 3
+    steps on one batch; the loss must fall."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.mesh import make_gus_mesh
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (init_ef_state,
+                                              init_train_state,
+                                              make_compressed_dp_train_step)
+
+    cfg = reduced_config("qwen3-8b")
+    opt_cfg = AdamWConfig(lr=1e-3, weight_decay=0.01)
+    params, state = init_train_state(0, cfg, opt_cfg, dev)
+    state = init_ef_state(params, state)
+    mesh = make_gus_mesh(2, device=dev)
+    step = make_compressed_dp_train_step(cfg, opt_cfg, mesh)
+    batch = _train_batch(torch, cfg, size["family_batch"],
+                         size["family_seq"], dev)
+    losses = []
+    for _ in range(size["family_steps"]):
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+    out = dict(shards=mesh.size, devices=[str(d) for d in mesh.devices],
+               losses=losses,
+               ef_shape=list(state["ef"]["embed"].shape))
+    print("[train] compressed dp " + json.dumps(out))
+    if not _falls(losses) or out["ef_shape"][0] != 2:
+        raise AssertionError(f"compressed DP at 2 shards: {out}")
+    return out
+
+
+def run_train_path(torch, dev, cfg=None, **size) -> dict:
+    """Phase 10: training (``train/``, ``utils/tree.py``,
+    ``data/tokens.py``, ``launch/train.py``).
+
+    (a) qwen3-8b (``cfg``; a rehearsal passes a cut one, and ``size`` cuts
+    the batch) at full width and depth in bf16 with bf16 moments, its
+    published 2 microbatches, ``AdamWConfig(lr=1e-4, weight_decay=0.01,
+    clip_norm=1.0)``, random init from seed 0, one batch of 8 x 512
+    ``MarkovTokens`` (seed 0): the memory estimate from the ``meta``
+    device beside the card's memory; the pre-clip grad norm in one
+    microbatch (before the moments exist); 6 steps on that batch (wall
+    with a synchronise); the loss finite and lower at step 6 than at step
+    1, step 1's grad norm within 1% of the one-microbatch norm; one step
+    profiled (device busy, idle share); the sliced AdamW update on three
+    layers of the gate leaf ([3, 4,096, 12,288], three slices) bit for
+    bit the whole-leaf formula; peak GB. (b) the other families at
+    ``reduced_config``; (c) the CLI's ``--resume``; (d) the compressed
+    data-parallel step at 2 shards. No GUS kernel may launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    size = dict(TRAIN_SIZE, **size)
+    cfg = cfg or get_config("qwen3-8b")
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    out = dict(full=_train_full(torch, dev, cfg, size),
+               families=_train_families(torch, dev, size),
+               cli=_train_cli(torch, dev, size),
+               dp=_train_dp(torch, dev, size))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    torch.cuda.empty_cache()
+    out.update(launches=counts, phase_s=time.perf_counter() - t0)
+    print(f"[train] phase 10 in {out['phase_s']:.1f} s; GUS kernel "
+          f"launches {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"the training path launched GUS kernels: "
+                             f"{counts}")
+    return out
+
+
 SOURCES = {  # kernel -> (CUDA source, TPU kernel it replaces, path)
     "fused_query": ("src/repro_torch/kernels/csrc/fused_query.cu",
                     "src/repro/kernels/fused_query.py:172", "main"),
@@ -3024,6 +3369,7 @@ def main() -> int:
     report.update(check_dryrun_shapes(torch, dev, dryrun.pop("calls")))
     lm = run_lm_path(torch, dev)
     families = run_lm_families_path(torch, dev)
+    train = run_train_path(torch, dev)
 
     path_counts = {"main": main_path["launches"],
                    "configs": configs["launches"],
@@ -3047,6 +3393,7 @@ def main() -> int:
             launches_sharded=path_counts["sharded"][name],
             launches_dryrun=path_counts["dryrun"][name],
             launches_lm=lm["launches"][name] + families["launches"][name],
+            launches_train=train["launches"][name],
             max_abs_err=rep["max_abs_err"], ms=rep["ms"],
             device_ms=rep["device_ms"], device_calls=rep.get("device_calls"),
             plain_ms=rep["plain_ms"],

@@ -34,7 +34,8 @@ re-routes as the reference does); like the port's own snapshots it holds host
 arrays only, and ``restore_state`` puts them on the engine's device.
 ``lm_params`` carries the LM tower's params tree (``init_params`` of any
 family of the reference's ``models/``, as nested numpy arrays) into the
-port's dict of tensors.
+port's dict of tensors, and ``adamw_state`` its AdamW state (``{step, m,
+v}``, and the compressed data-parallel step's residual ``ef``).
 """
 from __future__ import annotations
 
@@ -50,6 +51,7 @@ from repro_torch.core.idf import FilterTable, IdfTable
 from repro_torch.core.maintenance import MaintenanceConfig
 from repro_torch.graph.store import DynamicGraphStore, GraphConfig
 from repro_torch.models import build_model
+from repro_torch.train.optimizer import adamw_init
 from repro_torch.utils.device import resolve
 
 
@@ -187,21 +189,52 @@ def lm_params(arrays: dict, cfg, device=None) -> dict:
     device (the router, the scans' gate weights and biases and the norms
     stay f32 where the reference keeps them so); the same template checks
     every key and shape."""
-    dev = resolve(device)
     template = build_model(cfg).init_params(0, cfg, "meta")
+    return _carry(arrays, template, "params", resolve(device))
 
-    def walk(a, t, path):
-        if isinstance(t, dict) != isinstance(a, dict):
-            raise ValueError(f"{path}: a leaf against a subtree")
-        if isinstance(t, dict):
-            if set(a) != set(t):
-                raise ValueError(f"{path}: keys {sorted(a)} != the port's "
-                                 f"{sorted(t)}")
-            return {k: walk(a[k], t[k], f"{path}/{k}") for k in t}
-        a = np.array(a, np.float32)
-        if a.shape != tuple(t.shape):
-            raise ValueError(f"{path}: shape {a.shape} != the port's "
-                             f"{tuple(t.shape)}")
-        return torch.as_tensor(a, device=dev).to(t.dtype)
 
-    return walk(arrays, template, "params")
+def adamw_state(arrays: dict, cfg, opt_cfg, device=None) -> dict:
+    """The reference's AdamW state for ``cfg``'s params (``{step, m, v}``
+    and, from ``init_ef_state``, ``ef``; numpy arrays) as the port's, on
+    ``device``. The dtypes come from the port's own ``adamw_init`` on the
+    ``meta`` device (the moments in ``opt_cfg.moment_dtype``, the step
+    int32). A residual ``ef`` leaf shaped like its param is every shard's
+    (the reference's replicated value) and becomes [1, ...]; one stacked
+    [n, ...] is carried as it is."""
+    dev = resolve(device)
+    params = build_model(cfg).init_params(0, cfg, "meta")
+    template = adamw_init(params, opt_cfg)
+    out = _carry({k: arrays[k] for k in template}, template, "opt", dev)
+    if "ef" in arrays:
+        def ef_leaf(a, p):
+            a = np.asarray(a, np.float32)
+            a = a[None] if a.shape == tuple(p.shape) else a
+            if a.shape[1:] != tuple(p.shape):
+                raise ValueError(f"ef: shape {a.shape} against the param's "
+                                 f"{tuple(p.shape)}")
+            return torch.as_tensor(a, device=dev)
+        out["ef"] = _map2(ef_leaf, arrays["ef"], params)
+    return out
+
+
+def _map2(fn, a: dict, t: dict) -> dict:
+    """``fn(a_leaf, t_leaf)`` over template ``t``'s keys."""
+    return {k: _map2(fn, a[k], t[k]) if isinstance(t[k], dict)
+            else fn(a[k], t[k]) for k in t}
+
+
+def _carry(a, t, path: str, dev):
+    """numpy tree ``a`` as tensors of template ``t``'s keys, shapes and
+    dtypes, on ``dev``."""
+    if isinstance(t, dict) != isinstance(a, dict):
+        raise ValueError(f"{path}: a leaf against a subtree")
+    if isinstance(t, dict):
+        if set(a) != set(t):
+            raise ValueError(f"{path}: keys {sorted(a)} != the port's "
+                             f"{sorted(t)}")
+        return {k: _carry(a[k], t[k], f"{path}/{k}", dev) for k in t}
+    a = np.array(a, np.float32)
+    if a.shape != tuple(t.shape):
+        raise ValueError(f"{path}: shape {a.shape} != the port's "
+                         f"{tuple(t.shape)}")
+    return torch.as_tensor(a, device=dev).to(t.dtype)

@@ -11,6 +11,8 @@ Serving: ``init_cache`` makes the self-attention KV caches and the
 cross-attention K/V [L, B, n_frames, Hkv, Dh]; ``encode_prefill`` runs the
 encoder and fills the cross K/V in place; ``decode_step`` writes each new
 self-attention row in place (clamped like ``dynamic_update_slice``).
+In training each encoder and decoder layer is checkpointed where
+``cfg.remat`` asks for it, as the reference's stacks are.
 """
 from __future__ import annotations
 
@@ -125,11 +127,21 @@ def encode(params, cfg, frames):
     pos = torch.arange(frames.shape[1], device=frames.device)
     x = frames.to(cfg.cdtype) + _sinusoid(pos, cfg.d_model)[None].to(
         cfg.cdtype)
+    layer = L.remat(_enc_layer, cfg)
     for i in range(cfg.n_enc_layers):
-        lp = L.index(params["enc"], i)
-        x = x + _attn(lp, cfg, x, None, causal=False)
-        x = x + _mlp(lp, cfg, x)
+        x = layer(L.index(params["enc"], i), cfg, x)
     return L.layer_norm(x, params["enc_norm_w"], params["enc_norm_b"])
+
+
+def _enc_layer(p, cfg, x):
+    x = x + _attn(p, cfg, x, None, causal=False)
+    return x + _mlp(p, cfg, x)
+
+
+def _dec_layer(p, cfg, x, enc_out):
+    x = x + _attn(p, cfg, x, None, causal=True)
+    x = x + _attn(p, cfg, x, enc_out, causal=False, prefix="x_")
+    return x + _mlp(p, cfg, x)
 
 
 def features(params, cfg, batch):
@@ -137,13 +149,11 @@ def features(params, cfg, batch):
     enc_out = encode(params, cfg, batch["frames"])
     tokens = batch["tokens"]
     pos = torch.arange(tokens.shape[1], device=tokens.device)
-    x = params["embed"][tokens].to(cfg.cdtype) \
+    x = L.embed(params, tokens).to(cfg.cdtype) \
         + _sinusoid(pos, cfg.d_model)[None].to(cfg.cdtype)
+    layer = L.remat(_dec_layer, cfg)
     for i in range(cfg.n_layers):
-        lp = L.index(params["dec"], i)
-        x = x + _attn(lp, cfg, x, None, causal=True)
-        x = x + _attn(lp, cfg, x, enc_out, causal=False, prefix="x_")
-        x = x + _mlp(lp, cfg, x)
+        x = layer(L.index(params["dec"], i), cfg, x, enc_out)
     return L.layer_norm(x, params["final_norm_w"],
                         params["final_norm_b"]), 0.0
 

@@ -11,7 +11,9 @@ The params are stacked [groups, ...] (attention) and [groups, n, ...]
 (the two kinds of mamba layer), as in the reference; the layers run in
 Python loops over views. Attention layers carry KV caches (written in
 place, clamped like ``dynamic_update_slice``), mamba layers O(1) conv and
-SSM state (updated in place). Attention is NoPE: no rotary embedding.
+SSM state (updated in place). Attention is NoPE: no rotary embedding. In
+training each sub-layer is checkpointed where ``cfg.remat`` asks for it,
+as the reference's are (the groups are not).
 """
 from __future__ import annotations
 
@@ -91,26 +93,41 @@ def _mamba_layers(cfg):
         yield ("mamba_moe", j // 2) if j % 2 else ("mamba_dense", j // 2 - 1)
 
 
+def _attn_sub(p, cfg, x):
+    x = x + _attn_train(p, cfg, x)
+    return x + _dense_ffn(p, cfg, x)
+
+
+def _mamba_moe_sub(p, cfg, x):
+    x = x + ssm.mamba_train(p["mamba"], cfg, x)
+    y, aux = _moe_ffn(p, cfg, x)
+    return x + y, aux
+
+
+def _mamba_dense_sub(p, cfg, x):
+    x = x + ssm.mamba_train(p["mamba"], cfg, x)
+    return x + _dense_ffn(p, cfg, x)
+
+
 def _group_train(params, g: int, cfg, x):
     """One interleave group: the attention layer, then (P - 1) mamba
-    layers. -> (x, the group's aux loss)."""
-    ap = L.index(params["attn"], g)
-    x = x + _attn_train(ap, cfg, x)
-    x = x + _dense_ffn(ap, cfg, x)
+    layers, each sub-layer checkpointed in training where ``cfg.remat``
+    asks for it (the reference's ``_group_train``). -> (x, the group's aux
+    loss)."""
+    x = L.remat(_attn_sub, cfg)(L.index(params["attn"], g), cfg, x)
     aux = 0.0
     for kind, i in _mamba_layers(cfg):
         lp = L.index(params[kind], g, i)
-        x = x + ssm.mamba_train(lp["mamba"], cfg, x)
         if kind == "mamba_moe":
-            y, a = _moe_ffn(lp, cfg, x)
-            x, aux = x + y, aux + a
+            x, a = L.remat(_mamba_moe_sub, cfg)(lp, cfg, x)
+            aux = aux + a
         else:
-            x = x + _dense_ffn(lp, cfg, x)
+            x = L.remat(_mamba_dense_sub, cfg)(lp, cfg, x)
     return x, aux
 
 
 def features(params, cfg, batch):
-    x = params["embed"][batch["tokens"]].to(cfg.cdtype)
+    x = L.embed(params, batch["tokens"]).to(cfg.cdtype)
     aux = 0.0
     for g in range(_layout(cfg)[0]):
         x, a = _group_train(params, g, cfg, x)

@@ -20,6 +20,15 @@ stacked layers in Python loops over views (``stack_draws`` builds the
 stacks, ``index`` takes one layer's views). They belong to the sharding
 slice (ROADMAP.md Queue 1 item 5.4).
 
+Training: where autograd records, ``index`` takes a stacked param's layer
+through ``_TakeLayer``, whose backward adds the layer's gradient into its
+slot of the stacked param's ``.grad`` in place (one gradient tree, each
+layer's gradient written as it is produced; a plain ``select`` would
+make a zero [L, ...] tensor a layer), and ``remat`` wraps a function in
+``torch.utils.checkpoint`` where the reference places ``jax.checkpoint``
+and ``cfg.remat`` asks for it. Under ``torch.inference_mode`` (serving)
+neither does anything.
+
 Every init draws from a ``torch.Generator`` on its device; with no
 generator (``gen=None``) it makes empty tensors on the ``meta`` device:
 the params tree's shapes and dtypes without memory (``convert.lm_params``
@@ -30,6 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 # ----------------------------------------------------------------- init
 
@@ -112,10 +122,56 @@ def tile(tree: dict, lead: tuple) -> dict:
     return map_tree(lambda t: t.expand(*lead, *t.shape).clone(), tree)
 
 
+class _TakeLayer(torch.autograd.Function):
+    """``stacked[at]`` whose backward adds the layer's gradient into
+    ``stacked.grad[at]`` in place (allocating a zero ``.grad`` the first
+    time) and passes none on: the stacked param gets its gradient slot by
+    slot, with no [L, ...] temporary."""
+
+    @staticmethod
+    def forward(ctx, stacked, at):
+        ctx.stacked, ctx.at = stacked, at
+        return stacked[at]
+
+    @staticmethod
+    def backward(ctx, grad):
+        stacked = ctx.stacked
+        if stacked.grad is None:
+            stacked.grad = torch.zeros_like(stacked)
+        stacked.grad[ctx.at].add_(grad)
+        return None, None
+
+
 def index(tree: dict, *at) -> dict:
     """The views ``t[at]`` of every tensor of a stacked tree: one layer's
-    params or state, sharing memory with the stack."""
-    return map_tree(lambda t: t[at], tree)
+    params or state, sharing memory with the stack (through
+    ``_TakeLayer`` where autograd records and ``t`` requires grad)."""
+    def take(t):
+        if torch.is_grad_enabled() and t.requires_grad:
+            return _TakeLayer.apply(t, at)
+        return t[at]
+    return map_tree(take, tree)
+
+
+def remat(fn, cfg=None):
+    """``fn`` under ``torch.utils.checkpoint`` (its activations recomputed
+    in the backward) where autograd records and ``cfg.remat`` asks for it
+    (``cfg=None``: always, as the reference's unconditional checkpoints);
+    else ``fn`` itself."""
+    if not torch.is_grad_enabled() or (cfg is not None and not cfg.remat):
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+# ------------------------------------------------------------- embedding
+
+def embed(params, tokens):
+    """The rows of ``params["embed"]`` at ``tokens`` (the teacher-forced
+    forms' lookup). ``F.embedding``'s backward sums each row's gradients
+    in a fixed order, where indexing's (an accumulating ``index_put_``)
+    adds them in a thread-dependent order on the CPU: a resumed run must
+    repeat an unbroken one bit for bit."""
+    return F.embedding(tokens, params["embed"])
 
 
 # ----------------------------------------------------------------- norms
@@ -225,17 +281,10 @@ def flash_attention(q, k, v, *, causal: bool, kv_chunk: int = 1024):
     qpos = torch.arange(sq, device=q.device)
     q32 = q.float()
 
-    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, hkv, g, sq, dh), dtype=torch.float32,
-                      device=q.device)
-    for c_idx in range(n_chunks):
-        lo = c_idx * kv_chunk
-        kc, vc = k[:, lo:lo + kv_chunk], v[:, lo:lo + kv_chunk]
+    def step(m, l, acc, kc, vc, valid, lo):
         s = torch.einsum("bqhgd,bkhd->bhgqk", q32, kc.float()) * scale
         kpos = lo + torch.arange(kv_chunk, device=q.device)
-        mask = kv_valid[lo:lo + kv_chunk][None, :]
+        mask = valid[None, :]
         if causal:
             mask = mask & (qpos[:, None] >= kpos[None, :])
         s = torch.where(mask[None, None, None], s, NEG_INF)
@@ -245,8 +294,21 @@ def flash_attention(q, k, v, *, causal: bool, kv_chunk: int = 1024):
         l = l * corr + torch.sum(p, dim=-1)
         pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(q.dtype).float(),
                           vc.float())
-        acc = acc * corr[..., None] + pv
-        m = m_new
+        return m_new, l, acc * corr[..., None] + pv
+
+    # the chunk body is checkpointed, as the reference's: without it the
+    # backward keeps every chunk's probabilities, the whole Sq x Sk matrix
+    step = remat(step)
+    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, g, sq, dh), dtype=torch.float32,
+                      device=q.device)
+    for c_idx in range(n_chunks):
+        lo = c_idx * kv_chunk
+        m, l, acc = step(m, l, acc, k[:, lo:lo + kv_chunk],
+                         v[:, lo:lo + kv_chunk], kv_valid[lo:lo + kv_chunk],
+                         lo)
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)  # [B,Sq,Hkv,G,Dh]
 

@@ -5,12 +5,16 @@ scan) and xLSTM (mLSTM + sLSTM).
   fused multiply-add a step) over blocks of ``chunk`` steps whose gates
   are formed together: the working set is [B, chunk, dI, dS], and the
   result does not depend on ``chunk``. The reference runs an associative
-  scan within each chunk; the two agree to f32 rounding.
+  scan within each chunk; the two agree to f32 rounding. Serving writes
+  each state into the chunk's buffer (``out=``); training, where an
+  ``out=`` write cannot differentiate, stacks the chunk's states once.
 * mLSTM runs in its stabilised parallel (quadratic) form, or chunkwise
   (a Python loop over chunks carrying the (C, n, m) matrix memory) past
   ``cfg.mlstm_chunk`` tokens, and decodes with the O(1) recurrence.
 * sLSTM has true recurrent connections (R h_{t-1}) and runs as a Python
-  loop over the tokens, a dozen small launches a token.
+  loop over the tokens, a dozen small launches a token; the outputs are
+  stacked once at the end (a write per token into one buffer would copy
+  the whole gradient buffer per token in the backward).
 
 The ``*_decode`` functions write the new state into the tensors of the
 ``cache`` dict they are given, in place, and return that dict: the mLSTM's
@@ -83,9 +87,18 @@ def selective_scan(x, dt, a, bm, cm, chunk: int = 64):
         bc, cc = bm[:, lo:lo + chunk], cm[:, lo:lo + chunk]
         da = torch.exp(dtc.float()[..., None] * a)            # [b,c,di,ds]
         db = (dtc[..., None] * bc[:, :, None, :] * xc[..., None]).float()
-        hh = torch.empty_like(da)
-        for t in range(da.shape[1]):
-            h = torch.addcmul(db[:, t], da[:, t], h, out=hh[:, t])
+        if da.requires_grad or db.requires_grad:
+            # training: each state a tensor of its own, stacked once (an
+            # ``out=`` write does not differentiate)
+            hs = []
+            for t in range(da.shape[1]):
+                h = torch.addcmul(db[:, t], da[:, t], h)
+                hs.append(h)
+            hh = torch.stack(hs, dim=1)
+        else:
+            hh = torch.empty_like(da)
+            for t in range(da.shape[1]):
+                h = torch.addcmul(db[:, t], da[:, t], h, out=hh[:, t])
         y = torch.sum(hh * cc[:, :, None, :].float(), dim=-1)
         ys.append(y.to(x.dtype))
     return torch.cat(ys, dim=1)
@@ -401,11 +414,11 @@ def slstm_train(p, cfg, x):
     xn = L.rms_norm(x, p["norm"], cfg.norm_eps)
     wx = xn @ p["w"] + p["b"]                   # bf16 + f32 promotes to f32
     state = slstm_cache(cfg, b, x.device)
-    hs = torch.empty((b, l, cfg.n_heads, d // cfg.n_heads), dtype=F32,
-                     device=x.device)
+    hs = []
     for t in range(l):
-        state, hs[:, t] = _slstm_cell(p, cfg, wx[:, t], state)
-    return _slstm_out(p, cfg, x, hs.reshape(b, l, d))
+        state, h_t = _slstm_cell(p, cfg, wx[:, t], state)
+        hs.append(h_t)
+    return _slstm_out(p, cfg, x, torch.stack(hs, dim=1).reshape(b, l, d))
 
 
 def slstm_decode(p, cfg, x, cache):

@@ -5,7 +5,8 @@ One implementation, config-driven: GQA (+ optional qk_norm), RoPE or
 M-RoPE (vlm), swiglu FFN or MoE FFN (``models/moe.py``), optional biases.
 The params dict has the reference's keys and layout: blocks are stacked
 [L, ...], and the layers run in a Python loop over ``params["blocks"]``
-views (no remat: this is the serving path).
+views. In training each layer is checkpointed where ``cfg.remat`` asks
+for it, as the reference's ``scan_stack`` is (``layers.remat``).
 
 Entry points, as in the reference:
   apply(params, cfg, batch)                 -> (logits, aux)   # teacher-forced
@@ -197,7 +198,7 @@ def _positions_cos_sin(cfg, positions):
 
 
 def _embed(params, cfg, batch):
-    x = params["embed"][batch["tokens"]].to(cfg.cdtype)
+    x = L.embed(params, batch["tokens"]).to(cfg.cdtype)
     if cfg.family == "vlm" and "patch_embeds" in batch:
         # stub frontend: precomputed patch embeddings occupy the first
         # n_patches positions (the modality frontend is a stub)
@@ -223,8 +224,9 @@ def features(params, cfg, batch):
     cos, sin = _positions_cos_sin(cfg, positions)
     x = _embed(params, cfg, batch)
     aux = 0.0
+    block = L.remat(block_train, cfg)
     for i in range(cfg.n_layers):
-        x, aux_i = block_train(layer(params, i), cfg, x, cos, sin)
+        x, aux_i = block(layer(params, i), cfg, x, cos, sin)
         aux = aux + aux_i
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 

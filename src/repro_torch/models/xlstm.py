@@ -4,8 +4,10 @@
 xLSTM[7:1]: one sLSTM every ``slstm_period`` layers. The mLSTM params are
 stacked [groups, period - 1, ...] and the sLSTM's [groups, ...], as in the
 reference; the layers run in Python loops over views of the stacks (the
-reference's nested ``scan_stack``). No positional encodings (the
-recurrence carries order).
+reference's nested ``scan_stack``). In training each mLSTM and sLSTM
+block is checkpointed where ``cfg.remat`` asks for it, as the reference's
+are (the groups are not). No positional encodings (the recurrence
+carries order).
 """
 from __future__ import annotations
 
@@ -42,11 +44,13 @@ def init_params(seed: int, cfg, device=None) -> dict:
 
 
 def features(params, cfg, batch):
-    x = params["embed"][batch["tokens"]].to(cfg.cdtype)
+    x = L.embed(params, batch["tokens"]).to(cfg.cdtype)
+    mlstm = L.remat(lambda p, h: h + ssm.mlstm_train(p, cfg, h), cfg)
+    slstm = L.remat(lambda p, h: ssm.slstm_train(p, cfg, h), cfg)
     for g in range(_groups(cfg)):
         for j in range(cfg.slstm_period - 1):
-            x = x + ssm.mlstm_train(L.index(params["mlstm"], g, j), cfg, x)
-        x = ssm.slstm_train(L.index(params["slstm"], g), cfg, x)
+            x = mlstm(L.index(params["mlstm"], g, j), x)
+        x = slstm(L.index(params["slstm"], g), x)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), 0.0
 
 

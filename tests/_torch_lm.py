@@ -1,8 +1,9 @@
 """Shared helpers of the LM tower's parity tests (``tests/test_torch_moe.py``,
-``test_torch_ssm.py``, ``test_torch_encdec.py``, ``test_torch_hybrid.py``):
-the reference's params at a ``reduced_config`` carried into the port with
-``convert.lm_params``, numpy-seeded batches, and a decode run of both
-packages. The reference runs its model functions jitted, as
+``test_torch_ssm.py``, ``test_torch_encdec.py``, ``test_torch_hybrid.py``,
+``test_torch_train.py``, ``test_torch_train_step.py``): the reference's
+params at a ``reduced_config`` carried into the port with
+``convert.lm_params``, numpy-seeded batches (with labels for training),
+leaves by path, and a decode run of both packages. The reference runs its model functions jitted, as
 ``tests/test_torch_models.py`` does."""
 import contextlib
 import dataclasses
@@ -176,3 +177,41 @@ def decode_vs_teacher_forced(arch, **overrides) -> float:
     tf_logits, _ = api.apply(params, cfg, batch_)
     logits, _ = port_decode(cfg, params, batch_, 12, 10)
     return float((logits - tf_logits.transpose(0, 1)).abs().max())
+
+
+def train_batch(cfg, b, s, seed=0) -> dict:
+    """Tokens and labels (mel frames for encdec, patch embeddings for vlm)
+    from a numpy seed, as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32),
+           "labels": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)}
+    if cfg.family == "encdec":
+        out["frames"] = rng.normal(size=(b, cfg.n_frames, cfg.d_model)
+                                   ).astype(np.float32)
+    if cfg.family == "vlm":
+        out["patch_embeds"] = rng.normal(size=(b, cfg.n_patches, cfg.d_model)
+                                         ).astype(np.float32)
+    return out
+
+
+def by_path(tree) -> dict:
+    """The leaves of either package's tree as {path: numpy}, the paths
+    joined with ``/`` in the reference's flatten order."""
+    from repro_torch.utils.tree import leaves_with_paths
+    return {k: (v.detach().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v))
+            for k, v in leaves_with_paths(jax.tree.map(
+                lambda a: a if isinstance(a, torch.Tensor) else np.asarray(a),
+                tree))}
+
+
+def max_gap(a: dict, b: dict) -> float:
+    """The largest absolute difference of two ``by_path`` dicts (f32)."""
+    assert a.keys() == b.keys()
+    return max(float(np.abs(a[k].astype(np.float32)
+                            - b[k].astype(np.float32)).max()) for k in a)
+
+
+def rel_gap(a, b, floor=0.0) -> float:
+    """Relative L2 of ``a`` against ``b`` (whose norm is floored)."""
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), floor))

@@ -36,9 +36,12 @@ from repro_torch.core.scorer import (pair_feature_dim, pair_features,
 from repro_torch.data.stream import MutationStream, StreamConfig
 from repro_torch.data.synthetic import (OGB_ARXIV_LIKE, labeled_pairs,
                                         make_dataset)
+from repro_torch.launch import train as train_cli
 from repro_torch.models import encdec, hybrid, ssm, xlstm
 from repro_torch.models.transformer import init_cache as lm_init_cache
 from repro_torch.models.transformer import init_params as lm_init_params
+from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.train.train_step import init_train_state
 
 ROOT = Path(__file__).resolve().parent.parent
 DATA = dataclasses.replace(OGB_ARXIV_LIKE, n_points=1500, n_clusters=15)
@@ -245,6 +248,10 @@ def test_card_is_the_default_device():
         lambda: ssm.slstm_cache(XLSTM_CFG, 1),
         lambda: ssm.mamba_cache(HYBRID_CFG, 1),
         lambda: convert.lm_params({}, HYBRID_CFG),
+        lambda: convert.adamw_state({}, LM_CFG, AdamWConfig()),
+        lambda: init_train_state(0, LM_CFG, AdamWConfig()),
+        lambda: train_cli.run(train_cli.parse_args(
+            ["--arch", "qwen3-8b", "--reduced", "--steps", "1"])),
     ]
     for call in entry_points:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -308,4 +315,6 @@ def test_port_imports_no_jax_and_no_reference():
         "configs.base", "configs.registry", "configs.qwen3_8b",
         "configs.qwen2_vl_7b", "configs.whisper_tiny", "models",
         "models.layers", "models.transformer", "models.model", "models.moe",
-        "models.ssm", "models.xlstm", "models.encdec", "models.hybrid")} <= names
+        "models.ssm", "models.xlstm", "models.encdec", "models.hybrid",
+        "utils.tree", "train", "train.optimizer", "train.train_step",
+        "train.checkpoint", "data.tokens", "launch.train")} <= names

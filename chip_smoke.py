@@ -149,14 +149,27 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    straight equal to 2, ``--resume`` and 2 more, bit for bit; (d) the
    compressed data-parallel step (int8 codes, error feedback) at 2
    shards, the loss falling. It must launch none of the GUS kernels;
-11. print one JSON line with each kernel's numbers (with its launches on
+11. the dry-run's architecture cells (run after phase 10;
+   ``run_dryrun_arch_path``; ``[dryrun-arch]`` lines): ``launch/
+   dryrun.py``'s sweep over every arch x shape x both meshes (80
+   records, 16 of them the non-applicable long_500k skips): every live
+   cell sized on the meta device (per-device memory from the sharding
+   specs, the step's flops and bytes, the collectives, the 1- and
+   2-group probes), and the cells whose plan fits 85% of the card
+   (``ARCH_CARD_CELLS``: xlstm-1.3b x long_500k, whisper-tiny x
+   decode_32k) run whole on the card at their own shape with
+   ``check=True`` (the first rows against the same step on CPU copies);
+   one JSON line of the records. It fails on an ``error`` record, a
+   named cell that did not run on the card or a failed check, and must
+   launch none of the GUS kernels;
+12. print one JSON line with each kernel's numbers (with its launches on
    each path, ``launches_serve`` the serving phase's,
    ``launches_sharded`` the sharded phase's, ``launches_dryrun`` the
-   dry-run's, ``launches_lm`` the LM tower's (phases 8 and 9) and
-   ``launches_train`` the training phase's, all 0), then the result
-   line.
+   dry-run's, ``launches_lm`` the LM tower's (phases 8 and 9),
+   ``launches_train`` the training phase's and ``launches_arch`` the
+   architecture cells', all 0), then the result line.
 
-Phases 2-4, 6, 6s, 5m, 7, 8, 9 and 10 each zero the kernel launch counts just
+Phases 2-4, 6, 6s, 5m, 7, 8, 9, 10 and 11 each zero the kernel launch counts just
 before they start and read them just after; every kernel a phase runs
 must have launched in it. The index paths reach the exact rescore through
 ``sparse_rescore_topk`` and pair scoring through ``pair_score``, so
@@ -3297,6 +3310,81 @@ def run_train_path(torch, dev, cfg=None, **size) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 11
+
+# the architecture cells one H100 must hold whole (their plans: 4.8 and
+# 33.9 GB); the plan may admit more
+ARCH_CARD_CELLS = (("xlstm-1.3b", "long_500k"), ("whisper-tiny", "decode_32k"))
+
+
+def _arch_line(rec: dict) -> list:
+    """One record of phase 11's JSON line: ran, flops, bytes accessed,
+    argument bytes a device, the plan's GB, and step ms and peak GB where
+    the card ran it."""
+    main = rec["main"]
+    out = [rec["ran"], main["flops"], main["bytes_accessed"],
+           main["memory"]["argument_bytes"], round(rec["plan"]["need_gb"], 3)]
+    if rec["ran"] == "card":
+        out += [rec["step_ms"], main["memory"]["peak_bytes"] / 1e9]
+    return out
+
+
+def run_dryrun_arch_path(torch, dev, archs=None, shapes=None,
+                         card_cells=ARCH_CARD_CELLS, runs: int = 3,
+                         out_dir: str = "results/dryrun") -> dict:
+    """Phase 11: ``launch/dryrun.py::sweep`` over ``archs`` x ``shapes``
+    (default: all) x both meshes on ``dev``, ``check=True``: every live
+    cell sized on the meta device, the cells whose plan fits run whole on
+    the card and checked. Fails on an ``error`` record, on a cell of
+    ``card_cells`` that did not run on the card, or if a GUS kernel
+    launched."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    recs = dryrun.sweep(list(archs or ARCHS), list(shapes or SHAPES),
+                        [False, True], out_dir=out_dir, device=dev,
+                        runs=runs, check=True)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    torch.cuda.empty_cache()
+    out = dict(phase_s=time.perf_counter() - t0, launches=counts,
+               records=len(recs),
+               skipped=sum("skipped" in r for r in recs),
+               errors=[r for r in recs if "error" in r])
+    card = [r for r in recs if r.get("ran") == "card"]
+    out["card"] = {f"{r['arch']}_{r['shape']}_{r['mesh']}": dict(
+        step_ms=r["step_ms"], peak_gb=r["main"]["memory"]["peak_bytes"] / 1e9,
+        temp_gb=r["main"]["memory"]["temp_bytes"] / 1e9,
+        plan_gb=r["plan"]["need_gb"], build_s=r["build_s"],
+        first_call_s=r["first_call_s"], check=r["check"],
+        flops=r["main"]["flops"], bytes_accessed=r["main"]["bytes_accessed"])
+        for r in card}
+    for name, line in out["card"].items():
+        print(f"[dryrun-arch] {name} on the card: " + json.dumps(line))
+    print("[dryrun-arch] records " + json.dumps(
+        {f"{r['arch']}_{r['shape']}_{r['mesh']}": _arch_line(r)
+         for r in recs if "main" in r}))
+    print(f"[dryrun-arch] phase 11 in {out['phase_s']:.1f} s: "
+          f"{out['records']} records, {out['skipped']} skipped, "
+          f"{len(card)} run on the card; GUS kernel launches {counts}")
+    if out["errors"]:
+        raise AssertionError(f"architecture cells failed: {out['errors']}")
+    ran = {(r["arch"], r["shape"]) for r in card}
+    missing = [c for c in card_cells if c not in ran]
+    if missing or (card_cells and not card):
+        raise AssertionError(f"cells that did not run on the card: "
+                             f"{missing}")
+    if any(counts.values()):
+        raise AssertionError(f"the architecture cells launched GUS kernels: "
+                             f"{counts}")
+    return out
+
+
 SOURCES = {  # kernel -> (CUDA source, TPU kernel it replaces, path)
     "fused_query": ("src/repro_torch/kernels/csrc/fused_query.cu",
                     "src/repro/kernels/fused_query.py:172", "main"),
@@ -3370,6 +3458,7 @@ def main() -> int:
     lm = run_lm_path(torch, dev)
     families = run_lm_families_path(torch, dev)
     train = run_train_path(torch, dev)
+    arch = run_dryrun_arch_path(torch, dev)
 
     path_counts = {"main": main_path["launches"],
                    "configs": configs["launches"],
@@ -3394,6 +3483,7 @@ def main() -> int:
             launches_dryrun=path_counts["dryrun"][name],
             launches_lm=lm["launches"][name] + families["launches"][name],
             launches_train=train["launches"][name],
+            launches_arch=arch["launches"][name],
             max_abs_err=rep["max_abs_err"], ms=rep["ms"],
             device_ms=rep["device_ms"], device_calls=rep.get("device_calls"),
             plain_ms=rep["plain_ms"],

@@ -1,11 +1,15 @@
-"""The dry-run's GUS cells, run on the card (port of the GUS half of
-``repro/launch/dryrun.py``).
+"""The multi-pod dry-run (port of ``repro/launch/dryrun.py``): the GUS
+cells, run on the card, and the architecture cells, sized on the meta
+device and run whole on the card where one card holds them.
 
     python -m repro_torch.launch.dryrun --gus [--gus-mutate | --gus-delete]
         [--gus-merge hier] [--multipod | --both-meshes] [--gus-shards N]
         [--device cpu] [--check] --out results/dryrun
+    python -m repro_torch.launch.dryrun [--arch ID|all] [--shape NAME]
+        [--multipod | --both-meshes] [--no-probes | --probes-only]
+        [--device cpu] [--check] --out results/dryrun
 
-The reference lowers and compiles the sharded query, mutate and delete
+**The GUS cells.** The reference lowers and compiles the sharded query, mutate and delete
 steps (``ann/sharded.py``) for the production pod meshes, and reads XLA's
 memory analysis, cost analysis and HLO collectives. The port has no
 compiler to ask: it builds the cell's state on the device at full size
@@ -44,15 +48,64 @@ from the one site the mutate step reported, each partition's cursor moved
 by the rows it received and no other slot changed; the delete step
 cleared exactly the ``valid`` bits of the sites a mutate step reported.
 
-The architecture cells (``--arch``, ``--shape``) reach the LM tower, which
-is not ported: they exit non-zero. Importing this module touches no device
-and sets no environment variable (the reference's sets ``XLA_FLAGS``).
+**The architecture cells** (every arch of ``configs/registry.py`` x every
+shape of ``configs/base.py::SHAPES`` x the 16x16 and 2x16x16 meshes; with
+neither ``--gus*`` nor ``--arch`` the sweep runs shape-major over all of
+them, as the reference's does). The reference compiles each step for the
+mesh and reads XLA's analyses. The port has no compiler to ask, and most
+cells do not fit one card (jamba's params are 797 GB, command-r-plus's
+decode cache 1.1 TB), so every live cell is sized on the meta device:
+
+* ``memory``: ``argument_bytes`` and ``output_bytes`` are what one device
+  of the mesh holds of the step's inputs and outputs under the sharding
+  policy (``launch/sharding.py``: params, opt state and batch in train;
+  params and batch in prefill; params, cache and tokens in decode; the
+  outputs as ``_out_specs`` shards them). XLA adds 8 bytes a leaf for its
+  output tuple's index table, which the port does not count.
+  ``temp_bytes`` and ``code_bytes`` are ``null``: no compiler gives them;
+* ``flops`` and ``bytes_accessed``: the whole unsharded step counted on
+  the meta device (``launch/cost.py``: ``torch.utils.flop_counter``'s
+  formulas, and every aten operator's input and output bytes, nothing
+  fused, so an upper figure next to XLA's); divide by ``devices`` for the
+  reference's per-device figure;
+* ``collectives``: counted from the specs by ``collectives_from_specs``'s
+  rule, in the ``CollectiveStats.summary()`` form;
+* ``probes`` and ``corrected``: the same analysis of the reference's probe
+  programs (1 and 2 layer groups, unrolled, one microbatch) and
+  ``extrapolate`` over them, as the reference does. The port unrolls
+  every layer, so ``corrected`` equals ``main`` where the cell has one
+  microbatch. In train with n > 1 microbatches (the published configs)
+  ``corrected``'s flops equal ``main``'s (a product's flops scale with
+  its tokens, however they are split), while its bytes and collectives
+  are lower (each microbatch reads and gathers the weights again and
+  adds into the gradients);
+* ``plan``: ``cell_plan``, what running the cell whole on one device
+  would hold, and ``why_meta``, the figure that ruled it out.
+
+Such a record says ``"ran": "meta"``. A cell whose plan fits
+``CARD_SHARE`` of the card's memory also runs whole on the card at its
+own shape (no cut to batch, width or depth), its cache filled from a
+seeded generator up to ``seq_len - 1`` so that the step reads all of it
+(``run_whole``); its record says ``"ran": "card"`` and adds, as the GUS
+records do, ``build_s``, ``first_call_s``, ``step_ms`` (the median of
+``runs`` CUDA-event-timed steps), the measured ``temp_bytes`` and
+``peak_bytes`` and the ``device`` line; with ``check`` the first call is
+held against the same step on CPU copies (``_check``). With ``--device
+cpu`` every live cell is sized on the meta device and none runs whole. A
+cell that fails is written as an ``error`` record and the sweep goes on;
+the non-applicable long_500k cells are written as ``skipped``.
+
+The architecture cells reach no GUS kernel. Importing this module touches
+no device and sets no environment variable (the reference's sets
+``XLA_FLAGS``).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -62,15 +115,25 @@ import time
 import torch
 
 from repro_torch.ann import sharded
+from repro_torch.configs.base import SHAPES, applicable
+from repro_torch.configs.registry import ARCHS, get_config, reduced_config
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops
+from repro_torch.launch import cost
+from repro_torch.launch import sharding as shp
 from repro_torch.launch.mesh import make_gus_mesh, make_production_mesh
+from repro_torch.launch.sharding import P
+from repro_torch.models import build_model, encdec
+from repro_torch.models.model import cache_specs, input_specs, params_specs
+from repro_torch.models.moe import capacity
+from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
+from repro_torch.train.optimizer import AdamWConfig, adamw_init, moment_dtype
+from repro_torch.train.train_step import make_train_step
 from repro_torch.utils.device import resolve
+from repro_torch.utils.hlo import CollectiveStats
+from repro_torch.utils.tree import (leaves, leaves_with_paths, tree_map,
+                                    tree_param_count, tree_size_bytes)
 
-LM_CELLS = ("the architecture cells (--arch/--shape) are not ported: the "
-            "LM tower's dense serving path is (configs/, models/, "
-            "serve/serve_step.py), but the cells wait for ROADMAP.md "
-            "Queue 1 item 5.4 (launch/sharding.py, the specs, run_cell)")
 CHECK_QUERIES = 64
 
 
@@ -449,22 +512,570 @@ def run_gus_cell(multi_pod: bool, out_dir: str = "results/dryrun",
     return rec
 
 
-def _write(out_dir: str, rec: dict) -> None:
+# ------------------------------------------------------------ arch cells
+
+PROBE_STACKS = {
+    "dense": (1, 2), "moe": (1, 2), "vlm": (1, 2), "encdec": (1, 2),
+    "ssm": (1, 2), "hybrid": (1, 2),   # in units of one layer *group*
+}
+CARD_SHARE = 0.85        # of the card's memory a cell's plan may use
+CHECK_ROWS = 2           # batch rows the card-vs-CPU check compares
+GAP_FACTOR = 4.0         # x the CPU's dtype-vs-f32 gap (phase 8's factor)
+# x max(|value|, 1): the card-vs-CPU floor, the f32 bound the repo holds
+# two summation orders of one model to (tests/test_models.py:111)
+F32_FLOOR = 1e-3
+# products whose contracted dim "model" splits: psum of their output
+ROW_PARALLEL = ("wo", "x_wo", "down", "w_down", "out_proj", "down_proj",
+                "shared_down")
+
+
+def _group_size(cfg) -> int:
+    if cfg.family == "ssm":
+        return cfg.slstm_period
+    if cfg.family == "hybrid":
+        return cfg.attn_period
+    return 1
+
+
+def _probe_cfg(cfg, n_groups: int):
+    """The reference's probe: ``n_groups`` layer groups, unrolled, one
+    microbatch over the same global batch."""
+    g = _group_size(cfg)
+    repl = {"n_layers": n_groups * g, "scan_layers": False,
+            "microbatches": 1}
+    if cfg.family == "encdec":
+        repl["n_enc_layers"] = n_groups
+    return dataclasses.replace(cfg, **repl)
+
+
+def opt_config(cfg) -> AdamWConfig:
+    return AdamWConfig(lr=1e-4, moment_dtype=cfg.moment_dtype)
+
+
+def _dp_spec(mesh, b: int):
+    entry, n = shp._dp(mesh)
+    return entry if b % n == 0 else None
+
+
+def _cell_args(cfg, shape) -> tuple:
+    """The step's inputs on the ``meta`` device: params, opt state and
+    batch in train; params and batch in prefill; params, cache and the new
+    tokens in decode."""
+    params = params_specs(cfg)
+    if shape.kind == "decode":
+        return params, cache_specs(cfg, shape), \
+            input_specs(cfg, shape)["tokens"]
+    batch = input_specs(cfg, shape)
+    if shape.kind == "prefill":
+        return params, batch
+    return params, adamw_init(params, opt_config(cfg)), batch
+
+
+def build_cell(cfg, shape, mesh) -> dict:
+    """One cell's ``args`` (``_cell_args``) and their ``arg_specs`` under
+    the sharding policy on ``mesh``."""
+    args = _cell_args(cfg, shape)
+    p_specs = shp.param_specs(args[0], cfg, mesh)
+    if shape.kind == "decode":
+        specs = (p_specs, shp.cache_specs_tree(cfg, shape, mesh, args[1]),
+                 P(_dp_spec(mesh, shape.global_batch)))
+    else:
+        b_specs = shp.batch_specs(cfg, shape, mesh, args[-1])
+        specs = (p_specs, b_specs) if shape.kind == "prefill" else \
+            (p_specs, shp.opt_specs(args[1], p_specs), b_specs)
+    return dict(args=args, arg_specs=specs)
+
+
+def _out_specs(cfg, shape, mesh, cell, out):
+    """Specs of the step's outputs: train gives back params and opt state
+    under their input specs, and replicated metrics; the logits (prefill's
+    [B, S, Vp], decode's f32 [B, V]) split their batch over the dp axes
+    and their vocab over "model" where those divide (the sharding the
+    lm_head product gives them, and XLA keeps for the decode cell);
+    decode's token [B] splits like the batch, and the cache keeps its
+    specs."""
+    if shape.kind == "train":
+        return (cell["arg_specs"][0], cell["arg_specs"][1],
+                {k: P() for k in out[2]})
+    dp = _dp_spec(mesh, shape.global_batch)
+    logits = out if shape.kind == "prefill" else out[1]
+    vocab = "model" if logits.shape[-1] % shp.axis_size(
+        "model", mesh) == 0 else None
+    if shape.kind == "prefill":
+        return P(dp, None, vocab)
+    return (P(dp), P(dp, vocab), cell["arg_specs"][1])
+
+
+def collectives_from_specs(cfg, shape, mesh, params, p_specs) -> dict:
+    """The collectives a sharded step would run, counted from the specs
+    (nothing in the port emits HLO), in ``CollectiveStats.summary()``
+    form. Bytes are each collective's operand on one device, as
+    ``utils/hlo.py::collective_stats`` counts them; a leaf stacked over
+    [L, ...] layers is used L times. With n microbatches (1 but in
+    train):
+
+    * all-gather: every param leaf whose spec holds the FSDP axes
+      ("data", or ("pod", "data")) is gathered over them before each use:
+      operand its per-device shard; once a use in prefill and decode,
+      twice a microbatch in train (the forward, and the backward's
+      recompute of the checkpointed layers);
+    * reduce-scatter (train): each of those leaves' gradients, once a
+      step: operand the gradient gathered over the FSDP axes (the
+      per-device shard x their device count), in the param dtype;
+    * all-reduce: each row-parallel product (``ROW_PARALLEL``: wo, down,
+      out_proj, ...) whose contracted dim is on "model" sums its output
+      over "model": operand the output on one device, [tokens, d_out] in
+      the compute dtype, tokens = the batch split over the dp axes (where
+      it divides) x S (the encoder's frames for whisper's encoder, 1 in
+      decode; the expert stacks [E, cap] slots a sequence); once a use in
+      prefill and decode, twice a microbatch in train (the forward's psum
+      and the backward's of the input gradient)."""
+    stats = CollectiveStats()
+    fsdp, fsdp_n = shp._dp(mesh)
+    fsdp_names = fsdp if isinstance(fsdp, tuple) else (fsdp,)
+    micro = max(cfg.microbatches, 1) if shape.kind == "train" else 1
+    passes = 2 * micro if shape.kind == "train" else 1
+    b = shape.global_batch
+    b_loc = b // shp.axis_size(_dp_spec(mesh, b), mesh)
+    seq = 1 if shape.kind == "decode" else shape.seq_len
+    cb = cfg.cdtype.itemsize
+
+    def add(op, nbytes, n):
+        stats.bytes_by_op[op] = stats.bytes_by_op.get(op, 0) + nbytes * n
+        stats.count_by_op[op] = stats.count_by_op.get(op, 0) + n
+
+    for path, t in leaves_with_paths(params):
+        spec = shp.spec_at(p_specs, path)
+        keys = path.split("/")
+        skip = shp._stack_depth(cfg, keys[0])
+        uses = math.prod(t.shape[:skip])
+        # one layer's shard: the stack dims are never sharded
+        local = math.prod(shp.shard_shape(t.shape, spec, mesh)) \
+            * t.element_size() // uses
+        if any(e is not None and set(e if isinstance(e, tuple) else (e,))
+               & set(fsdp_names) for e in spec):
+            add("all-gather", local, uses * passes)
+            if shape.kind == "train":
+                add("reduce-scatter", local * fsdp_n, uses)
+        body = tuple(spec[skip:]) + (None,) * (t.dim() - len(spec))
+        if keys[-1] in ROW_PARALLEL:
+            experts = keys[-1] == "w_down" and len(body) == 3
+            contracted = ((1,) if experts else (0, 1)) if len(body) == 3 \
+                else (0,)
+            if any(body[i] == "model" for i in contracted):
+                tokens = b_loc * (cfg.n_frames if keys[0] == "enc" else seq)
+                if experts:           # [B, E, cap] slots a sequence
+                    tokens = b_loc * t.shape[skip] * capacity(cfg, seq)
+                add("all-reduce", tokens * t.shape[-1] * cb, uses * passes)
+    return stats.summary()
+
+
+@functools.lru_cache(maxsize=None)
+def count_step(cfg, shape) -> tuple:
+    """(flops, bytes, output) of the cell's step on the meta device
+    (``launch/cost.py``): the whole unsharded step, so one count serves
+    both meshes (divide by a mesh's device count for the reference's
+    per-device figure)."""
+    if shape.kind == "train":
+        return cost.count_train_step(cfg, shape, opt_config(cfg))
+    return cost.count(_make_step(cfg, shape), *_cell_args(cfg, shape))
+
+
+def analyze(cfg, shape, mesh) -> dict:
+    """The record's ``memory`` (per device, from the specs; no compiler
+    gives ``temp_bytes`` and ``code_bytes``), ``flops`` and
+    ``bytes_accessed`` (``count_step``) and ``collectives``
+    (``collectives_from_specs``) for one cell."""
+    cell = build_cell(cfg, shape, mesh)
+    flops, nbytes, out = count_step(cfg, shape)
+    return {"memory": {
+                "argument_bytes": sum(
+                    shp.per_device_bytes(a, s, mesh)
+                    for a, s in zip(cell["args"], cell["arg_specs"])),
+                "output_bytes": shp.per_device_bytes(
+                    out, _out_specs(cfg, shape, mesh, cell, out), mesh),
+                "temp_bytes": None, "code_bytes": None},
+            "flops": float(flops), "bytes_accessed": float(nbytes),
+            "collectives": collectives_from_specs(
+                cfg, shape, mesh, cell["args"][0], cell["arg_specs"][0])}
+
+
+def extrapolate(cfg, probes: dict, lo: int, hi: int, group: int) -> dict:
+    """Linear extrapolation of per-device cost to the full layer count:
+    total(L) = cost(lo) + (cost(hi) - cost(lo)) * (L/g - lo) / (hi - lo)."""
+    n_groups = cfg.n_layers // group
+    f = (n_groups - lo) / (hi - lo)
+    out = {}
+    for key in ("flops", "bytes_accessed"):
+        a = probes["probe_lo"][key]
+        b = probes["probe_hi"][key]
+        out[key] = a + (b - a) * f
+    a = probes["probe_lo"]["collectives"]["total_bytes"]
+    b = probes["probe_hi"]["collectives"]["total_bytes"]
+    out["collective_bytes"] = a + (b - a) * f
+    # per-op collective extrapolation
+    ops = set(probes["probe_lo"]["collectives"]["bytes_by_op"]) \
+        | set(probes["probe_hi"]["collectives"]["bytes_by_op"])
+    out["collective_by_op"] = {
+        op: probes["probe_lo"]["collectives"]["bytes_by_op"].get(op, 0)
+        + (probes["probe_hi"]["collectives"]["bytes_by_op"].get(op, 0)
+           - probes["probe_lo"]["collectives"]["bytes_by_op"].get(op, 0)) * f
+        for op in sorted(ops)}
+    return out
+
+
+def cell_plan(cfg, shape, limit_bytes=None) -> dict:
+    """What running the cell whole on one device needs, from its trees on
+    the meta device (GB): the params; in train their gradients (param
+    dtype) and the two AdamW moments (moment dtype); the decode cache;
+    and the activations' peak, estimated as the largest of the step's
+    transients on top of what it keeps:
+
+    * train (per microbatch of T = B / n x S tokens): the layer inputs the
+      checkpoints keep (n_layers x T x d, compute dtype), one layer's
+      recompute and backward (four f32 attention tiles [B / n, H, S,
+      min(S, attn_chunk)], six [T, ff] compute-dtype and ten f32 [T, d]
+      tensors), the CE chunk's logits (B / n x 512 x Vp, 14 bytes a
+      logit: compute dtype, f32, its f32 gradient, the f32 input
+      logsumexp keeps) and six f32 optimizer slices of 2^26;
+    * prefill: the logits [B, S, Vp] in the compute dtype twice (the
+      product and its return), four f32 attention tiles as above (the
+      xLSTM: three f32 [B, H, c, c], c the mLSTM chunk or S) and four
+      [B, S, max(d, ff)] f32 tensors;
+    * decode: the f32 logits [B, Vp] three times; one layer's K cache
+      up-cast to f32 twice (the up-cast and its copy laid out for the
+      product) and three f32 score rows [B, H, S] (attention), or three
+      f32 copies of one layer's state (the xLSTM's C, the mamba's h).
+
+    ``fits`` compares the total with ``limit_bytes`` (``None``: no
+    verdict)."""
+    params = params_specs(cfg)
+    gb = 1e9
+    pb = tree_size_bytes(params)
+    out = {"params_gb": pb / gb}
+    b, s = shape.global_batch, shape.seq_len
+    d, vp, cb = cfg.d_model, cfg.padded_vocab, cfg.cdtype.itemsize
+    heads = max(cfg.n_heads, 1)
+    ff = max(cfg.d_ff, cfg.expert_ff(), cfg.ssm_expand * d)
+    keep = 0
+    if shape.kind == "train":
+        n = tree_param_count(params)
+        keep = pb + 2 * n * moment_dtype(cfg.moment_dtype).itemsize
+        out["grads_moments_gb"] = keep / gb
+        keep += pb
+        mb = b // max(cfg.microbatches, 1)
+        t = mb * s
+        act = (cfg.n_layers * t * d * cb
+               + 4 * 4 * mb * heads * s * min(s, cfg.attn_chunk)
+               + 6 * t * ff * cb + 10 * 4 * t * d
+               + mb * min(s, 512) * vp * (cb + 12) + 6 * 4 * (1 << 26))
+    elif shape.kind == "prefill":
+        c = min(s, cfg.mlstm_chunk or s) if cfg.family == "ssm" else \
+            min(s, cfg.attn_chunk)
+        tile = 3 * 4 * b * heads * c * c if cfg.family == "ssm" else \
+            4 * 4 * b * heads * s * c
+        act = 2 * b * s * vp * cb + tile + 4 * 4 * b * s * max(d, ff)
+    else:
+        cache = cache_specs(cfg, shape)
+        cache_b = tree_size_bytes(cache)
+        out["cache_gb"] = cache_b / gb
+        keep = cache_b
+        layer = 0
+        if "k" in cache:
+            k = cache["k"]
+            layer = 2 * 4 * k[0].numel() + 3 * 4 * b * heads * s
+        for key in ("mlstm", "mamba_moe", "mamba_dense"):
+            if key in cache:
+                big = max(leaves(cache[key]), key=lambda t: t.numel())
+                layer = max(layer, 3 * 4 * big[0, 0].numel())
+        act = 3 * 4 * b * vp + layer
+    out["activations_gb"] = act / gb
+    out["need_gb"] = (pb + keep + act) / gb
+    out["limit_gb"] = None if limit_bytes is None else limit_bytes / gb
+    out["fits"] = None if limit_bytes is None else \
+        pb + keep + act <= limit_bytes
+    return out
+
+
+def _card_limit(dev: torch.device):
+    if dev.type != "cuda":
+        return None
+    return CARD_SHARE * torch.cuda.get_device_properties(dev).total_memory
+
+
+def _seeded(cfg, shape, dev, seed: int = 0) -> tuple:
+    """The step's inputs at the cell's own shape on ``dev``: params from
+    ``init_params(seed)``; train and prefill batches of seeded tokens
+    (labels the next tokens), frames and patch embeddings; a decode cache
+    filled from a seeded generator up to ``seq_len - 1`` (every float leaf
+    normal, the sLSTM normalisers 1 + |normal|; whisper's cross K/V from
+    ``encode_prefill`` of seeded frames; ``len`` = seq_len - 1) and one
+    seeded token a row."""
+    api = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    params = api.init_params(seed, cfg, dev)
+    b, s = shape.global_batch, shape.seq_len
+
+    def tokens(*size):
+        return torch.randint(0, cfg.vocab_size, size, generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    def normal(*size):
+        return torch.randn(size, generator=gen, device=dev).to(cfg.cdtype)
+
+    if shape.kind != "decode":
+        seq = tokens(b, s + 1)
+        batch = {"tokens": seq[:, :-1].contiguous(),
+                 "labels": seq[:, 1:].contiguous()}
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = normal(b, cfg.n_patches, cfg.d_model)
+            batch["positions"] = torch.arange(
+                s, device=dev, dtype=torch.int32)[None, :, None].expand(
+                b, s, 3).contiguous()
+        if cfg.family == "encdec":
+            batch["frames"] = normal(b, cfg.n_frames, cfg.d_model)
+        return params, batch
+    cache = api.init_cache(cfg, b, s, dev)
+    for path, t in leaves_with_paths(cache):
+        name = path.split("/")[-1]
+        if name == "len":
+            t.fill_(s - 1)
+        elif t.is_floating_point() and name not in ("xk", "xv"):
+            t.normal_(generator=gen)
+            if name == "n" and path.startswith("slstm"):
+                t.abs_().add_(1.0)
+    if cfg.family == "encdec":
+        with torch.inference_mode():
+            cache = encdec.encode_prefill(
+                params, cfg, normal(b, cfg.n_frames, cfg.d_model), cache)
+    return params, cache, tokens(b)
+
+
+def _rows(tree, b: int, n: int):
+    """The first ``n`` batch rows of every leaf of a decode cache or batch
+    (the batch dim: the first dim of size ``b``), copied to the CPU."""
+    def take(t):
+        if n < b:
+            t = t.narrow(list(t.shape).index(b), 0, n)
+        return t.to("cpu", copy=True)
+    return tree_map(take, tree)
+
+
+def _gap(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) \
+        if got.numel() else 0.0
+
+
+def _check(cfg, shape, step, cpu_args, card_out, rows: int) -> dict:
+    """The card's step against the same step on CPU copies (the first
+    ``rows`` batch rows of a prefill or decode; the whole step in train):
+    each float output leaf within GAP_FACTOR x its gap between the CPU
+    step in the cell's dtypes and the same step up-cast to f32, plus
+    F32_FLOOR x its largest |value| (the card and the CPU sum in other
+    orders, also in f32); integer leaves exactly, but the decode's token,
+    which must be the argmax of the card's own logits (a near tie may
+    fall either way between two summation orders)."""
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    args32 = tree_map(lambda t: t.to(torch.float32, copy=True)
+                      if t.is_floating_point() else t.clone(), cpu_args)
+    want = step(*cpu_args)
+    want32 = _make_step(cfg32, shape)(*args32)
+    got = _rows(card_out, shape.global_batch, rows) \
+        if shape.kind != "train" else tree_map(
+            lambda t: t.to("cpu", copy=True), card_out)
+    worst = 0.0
+    for (path, g), (_, w), (_, w32) in zip(leaves_with_paths(got),
+                                           leaves_with_paths(want),
+                                           leaves_with_paths(want32)):
+        if shape.kind == "decode" and path == "0":
+            if not torch.equal(g, got[1].argmax(-1).to(g.dtype)):
+                raise AssertionError("the card's decode token is not the "
+                                     "argmax of its logits")
+            continue
+        if not g.is_floating_point():
+            if not torch.equal(g, w):
+                raise AssertionError(f"{path}: the card's integers differ "
+                                     f"from the CPU's")
+            continue
+        err, gap = _gap(g, w), _gap(w, w32)
+        top = float(w.float().abs().max()) if w.numel() else 0.0
+        bound = GAP_FACTOR * gap + F32_FLOOR * max(top, 1.0)
+        if not err <= bound:
+            raise AssertionError(f"{path}: card vs CPU {err:.4g} > bound "
+                                 f"{bound:.4g} (f32 gap {gap:.4g})")
+        worst = max(worst, err / bound)
+    return {"rows": rows if shape.kind != "train" else None,
+            "worst_share_of_bound": worst}
+
+
+def _make_step(cfg, shape):
+    if shape.kind == "decode":
+        return make_decode_step(cfg)
+    if shape.kind == "prefill":
+        return make_prefill_step(cfg)
+    return make_train_step(cfg, opt_config(cfg))
+
+
+def run_whole(cfg, shape, dev, runs: int = 5, check: bool = False) -> dict:
+    """The cell's step at its own shape on ``dev``: inputs built
+    (``_seeded``), one call (``first_call_s``), with ``check`` that call
+    held against CPU copies (``_check``), one more between a reset of the
+    peak and its read (``temp_bytes``, ``peak_bytes``), then ``runs``
+    calls timed by CUDA events (the host clock on the CPU). A decode step
+    writes the same cache slot each time; a train step updates the params
+    and moments in place, each step the next."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    args = _seeded(cfg, shape, dev)
+    if shape.kind == "train":
+        args = (args[0], adamw_init(args[0], opt_config(cfg)), args[1])
+    _sync(dev)
+    rec = {"build_s": round(time.perf_counter() - t0, 3)}
+    step = _make_step(cfg, shape)
+    rows = min(CHECK_ROWS, shape.global_batch)
+    cpu_args = None
+    if check:
+        if shape.kind == "train":
+            cpu_args = tree_map(lambda t: t.to("cpu", copy=True), args)
+        else:
+            cpu_args = (tree_map(lambda t: t.to("cpu", copy=True), args[0]),
+                        *(_rows(a, shape.global_batch, rows)
+                          for a in args[1:]))
+    t0 = time.perf_counter()
+    out = step(*args)
+    _sync(dev)
+    rec["first_call_s"] = round(time.perf_counter() - t0, 3)
+    if check:
+        rec["check"] = _check(cfg, shape, step, cpu_args, out, rows)
+        del cpu_args
+    del out
+    base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    step(*args)
+    _sync(dev)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    times = [_timed_ms(lambda: step(*args), dev) for _ in range(runs)]
+    rec.update(step_ms=statistics.median(times) if times else None,
+               runs=runs, temp_bytes=max(peak - base, 0), peak_bytes=peak)
+    return rec
+
+
+def run_cell(arch: str, shape_name: str, multi_pod: bool,
+             probes: bool = True, out_dir: str = "results/dryrun",
+             verbose: bool = True, probes_only: bool = False, cfg=None,
+             device=None, whole: bool = False, runs: int = 5,
+             check: bool = False,
+             memo: dict | None = None) -> dict:
+    """One (arch x shape x mesh) cell: sized on the meta device (module
+    docstring) and, where its plan or ``whole`` says so, run whole on
+    ``device``; the record written to ``out_dir`` and returned. ``cfg`` replaces
+    ``get_config(arch)`` (a test's ``reduced_config``). The cell runs
+    whole on the card when its ``cell_plan`` fits ``CARD_SHARE`` of the
+    card's memory, and never on the CPU; ``whole`` runs it on ``device``
+    whatever the plan (a reduced cell on the CPU). ``probes`` adds
+    the 1- and 2-group probes and ``corrected``; ``probes_only`` merges
+    them into the record already in ``out_dir`` (computing it first where
+    there is none). ``memo`` (a dict) keeps a card run for the other
+    mesh's record of the same cell: one card runs the whole unsharded
+    step, whatever the mesh."""
+    cfg = cfg or get_config(arch)
+    shape = SHAPES[shape_name]
+    ok, why = applicable(cfg, shape)
+    mesh_name = "2x16x16" if multi_pod else "16x16"
+    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
+           "kind": shape.kind}
+    if not ok:
+        rec["skipped"] = why
+        _write(out_dir, rec)
+        return rec
+    path = os.path.join(out_dir, f"{arch}_{shape_name}_{mesh_name}.json")
+    if probes_only and os.path.exists(path):
+        with open(path) as f:
+            rec = json.load(f)
+        if "corrected" in rec:
+            print(f"[dryrun] {arch}_{shape_name}: probes already done")
+            return rec
+    else:
+        probes_only = False
+    dev = resolve(device)
+    mesh = make_production_mesh(multi_pod=multi_pod, device="meta")
+    rec["devices"] = mesh.size
+    if not probes_only:
+        t0 = time.perf_counter()
+        rec["main"] = analyze(cfg, shape, mesh)
+        rec["count_s"] = round(time.perf_counter() - t0, 3)
+        plan = cell_plan(cfg, shape, _card_limit(dev))
+        rec["plan"] = plan
+        if whole or plan["fits"] is True:
+            key = (cfg, shape_name, str(dev), runs, check)
+            card = (memo or {}).get(key) or run_whole(cfg, shape, dev, runs,
+                                                      check)
+            if memo is not None:
+                memo[key] = card
+            rec["ran"] = "card" if dev.type == "cuda" else dev.type
+            rec["device"] = _card_line() if dev.type == "cuda" else "cpu"
+            for name in ("temp_bytes", "peak_bytes"):
+                rec["main"]["memory"][name] = card[name]
+            rec.update({k: v for k, v in card.items()
+                        if k not in ("temp_bytes", "peak_bytes")})
+        else:
+            rec["ran"] = "meta"
+            rec["why_meta"] = (f"device {dev.type}" if plan["fits"] is None
+                               else f"plan {plan['need_gb']:.2f} GB > "
+                                    f"{plan['limit_gb']:.2f} GB")
+    if probes or probes_only:
+        g = _group_size(cfg)
+        lo, hi = PROBE_STACKS[cfg.family]
+        probe_res = {}
+        for tag, n in (("probe_lo", lo), ("probe_hi", hi)):
+            pcfg = _probe_cfg(cfg, n)
+            t0 = time.perf_counter()
+            probe_res[tag] = analyze(pcfg, shape, mesh)
+            probe_res[tag]["layers"] = pcfg.n_layers
+            probe_res[tag]["count_s"] = round(time.perf_counter() - t0, 3)
+        rec["probes"] = probe_res
+        rec["corrected"] = extrapolate(cfg, probe_res, lo, hi, g)
+    _write(out_dir, rec, verbose)
+    return rec
+
+
+def _write(out_dir: str, rec: dict, verbose: bool = True) -> None:
+    """The record as ``<arch>_<shape>_<mesh>.json`` (a GUS cell's as
+    ``<kind>_<mesh>.json``), the reference's names, and one line."""
     os.makedirs(out_dir, exist_ok=True)
-    name = f"{rec['kind']}_{rec['mesh']}"
+    name = f"{rec['arch']}_{rec['shape']}_{rec['mesh']}"
+    if rec.get("kind", "").startswith("gus_"):
+        name = f"{rec['kind']}_{rec['mesh']}"
     with open(os.path.join(out_dir, name + ".json"), "w") as f:
         json.dump(rec, f, indent=1)
+    if not verbose:
+        return
+    if "skipped" in rec or "error" in rec:
+        print(f"[dryrun] {name}: {'SKIP' if 'skipped' in rec else 'ERROR'}")
+        return
     mem = rec["main"]["memory"]
-    print(f"[dryrun] {name}: OK (build {rec['build_s']} s, first call "
-          f"{rec['first_call_s']} s, step {rec['step_ms']} ms, temp_bytes "
-          f"{mem['temp_bytes']}, peak {mem['peak_bytes'] / 1e9:.3f} GB, "
-          f"{rec['device']})")
+    if name.startswith("gus_"):
+        print(f"[dryrun] {name}: OK (build {rec['build_s']} s, first call "
+              f"{rec['first_call_s']} s, step {rec['step_ms']} ms, "
+              f"temp_bytes {mem['temp_bytes']}, peak "
+              f"{mem['peak_bytes'] / 1e9:.3f} GB, {rec['device']})")
+        return
+    main, plan = rec["main"], rec["plan"]
+    line = (f"[dryrun] {name}: OK (ran {rec['ran']}, count {rec['count_s']} "
+            f"s, flops {main['flops']:.4g}, bytes "
+            f"{main['bytes_accessed']:.4g}, plan {plan['need_gb']:.2f} GB")
+    if rec["ran"] != "meta":
+        line += (f", step {rec['step_ms']} ms, peak "
+                 f"{mem['peak_bytes'] / 1e9:.3f} GB, {rec['device']}")
+    print(line + ")")
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default=None, help=LM_CELLS)
-    ap.add_argument("--shape", default=None, help=LM_CELLS)
+    ap.add_argument("--arch", default=None, help="arch id or 'all'")
+    ap.add_argument("--shape", default=None, choices=[*SHAPES, None])
     ap.add_argument("--multipod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--gus", action="store_true",
@@ -478,30 +1089,64 @@ def main(argv=None) -> None:
     ap.add_argument("--gus-shards", type=int, default=0,
                     help="run the GUS cells, shrunk, on an N-shard 1-D "
                          "mesh instead of the pod mesh")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the arch cells at reduced_config (tests)")
+    ap.add_argument("--no-probes", action="store_true")
+    ap.add_argument("--probes-only", action="store_true",
+                    help="add probe corrections to existing records")
     ap.add_argument("--device", default=None,
-                    help="the device of every shard (default: the card)")
+                    help="the device of every shard, or of an arch cell "
+                         "run whole (default: the card)")
     ap.add_argument("--runs", type=int, default=5,
                     help="timed steps after the first")
     ap.add_argument("--check", action="store_true",
                     help="check each step's answer (module docstring)")
     ap.add_argument("--profile", action="store_true",
-                    help="profile one more step on the card")
+                    help="profile one more GUS step on the card")
     ap.add_argument("--out", default="results/dryrun")
     args = ap.parse_args(argv)
 
-    if args.arch is not None or args.shape is not None or not (
-            args.gus or args.gus_mutate or args.gus_delete):
-        ap.exit(2, f"dryrun: {LM_CELLS}; run the GUS cells with --gus, "
-                   f"--gus-mutate or --gus-delete\n")
-    op = ("mutate" if args.gus_mutate
-          else "delete" if args.gus_delete else "query")
-    for mp in ([False, True] if args.both_meshes else [args.multipod]):
-        run_gus_cell(mp, args.out, op=op, merge=args.gus_merge,
-                     n_partitions=args.gus_partitions, slab=args.gus_slab,
-                     tag=args.gus_tag, shards=args.gus_shards,
-                     device=args.device, runs=args.runs, check=args.check,
-                     profile=args.profile)
+    meshes = [False, True] if args.both_meshes else [args.multipod]
+    if args.gus or args.gus_mutate or args.gus_delete:
+        op = ("mutate" if args.gus_mutate
+              else "delete" if args.gus_delete else "query")
+        for mp in meshes:
+            run_gus_cell(mp, args.out, op=op, merge=args.gus_merge,
+                         n_partitions=args.gus_partitions,
+                         slab=args.gus_slab, tag=args.gus_tag,
+                         shards=args.gus_shards, device=args.device,
+                         runs=args.runs, check=args.check,
+                         profile=args.profile)
+        return
+    archs = list(ARCHS) if args.arch in (None, "all") else [args.arch]
+    shapes = list(SHAPES) if args.shape is None else [args.shape]
+    sweep(archs, shapes, meshes, out_dir=args.out, reduced=args.reduced,
+          probes=not args.no_probes, probes_only=args.probes_only,
+          device=args.device, runs=args.runs, check=args.check)
 
+
+def sweep(archs, shapes, meshes, out_dir: str = "results/dryrun",
+          reduced: bool = False, **cell) -> list:
+    """``run_cell`` over every shape, arch and mesh, shape-major (all the
+    train cells first; ``reduced``: each arch at its ``reduced_config``);
+    a cell that raises is written as an ``error`` record and the sweep
+    goes on. Returns the records."""
+    memo, recs = {}, []
+    for shape in shapes:
+        for arch in archs:
+            for mp in meshes:
+                try:
+                    cfg = reduced_config(arch) if reduced else None
+                    recs.append(run_cell(arch, shape, mp, out_dir=out_dir,
+                                         cfg=cfg, memo=memo, **cell))
+                except Exception as e:  # keep sweeping; record the failure
+                    rec = {"arch": arch, "shape": shape,
+                           "mesh": "2x16x16" if mp else "16x16",
+                           "kind": SHAPES[shape].kind,
+                           "error": f"{type(e).__name__}: {e}"[:500]}
+                    _write(out_dir, rec)
+                    recs.append(rec)
+    return recs
 
 if __name__ == "__main__":
     sys.exit(main())

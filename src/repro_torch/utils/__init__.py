@@ -1,4 +1,5 @@
-"""Small helpers: device selection, wall-clock timing, batch padding."""
+"""Small helpers: device selection, wall-clock timing, batch padding,
+the tree walks and the HLO collective parser."""
 
 
 def pow2_pad(n: int, cap: int | None = None) -> int:

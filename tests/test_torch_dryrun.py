@@ -20,7 +20,9 @@ subprocess, as ``tests/test_sharded.py`` runs its meshes. There:
 In this process the port runs the same cells on the CPU: its records,
 its steps on every shard's state, the collective counts against the
 bytes the steps' gathers hold, the cells' checks (and that they catch a
-wrong answer), and ``--arch`` exiting non-zero.
+wrong answer), and one reduced architecture cell through the CLI
+(``tests/test_torch_sharding.py`` holds the architecture cells against
+the reference).
 """
 import dataclasses
 import json
@@ -369,8 +371,9 @@ def test_cell_checks_pass_and_catch_a_wrong_answer(tmp_path, op):
 
 def test_meshes_and_cli(tmp_path, capsys):
     """The production meshes' shapes and axes, the axis helpers, a CLI run
-    at two shards on the CPU, and ``--arch`` / no cell exiting non-zero
-    with the roadmap item named."""
+    at two shards on the CPU, one reduced architecture cell through the
+    CLI on the CPU (sized on the meta device: its record's name and
+    fields), and a shape that does not exist exiting non-zero."""
     mesh = make_production_mesh(device="cpu")
     assert (mesh.shape, mesh.axis_names, mesh.size) == (
         (16, 16), ("data", "model"), 256)
@@ -384,11 +387,29 @@ def test_meshes_and_cli(tmp_path, capsys):
                  "--runs", "1", "--out", str(tmp_path)])
     assert os.listdir(tmp_path) == ["gus_delete_cpu2.json"]
     assert "[dryrun] gus_delete_cpu2: OK" in capsys.readouterr().out
-    for argv in (["--arch", "dense"], ["--shape", "train"], []):
-        with pytest.raises(SystemExit) as exit_:
-            dryrun.main(argv)
-        assert exit_.value.code != 0
-        assert "ROADMAP.md Queue 1 item 5" in capsys.readouterr().err
+    arch_dir = tmp_path / "arch"
+    dryrun.main(["--arch", "qwen3-8b", "--shape", "decode_32k", "--reduced",
+                 "--device", "cpu", "--out", str(arch_dir)])
+    assert os.listdir(arch_dir) == ["qwen3-8b_decode_32k_16x16.json"]
+    assert "[dryrun] qwen3-8b_decode_32k_16x16: OK (ran meta" in \
+        capsys.readouterr().out
+    with open(arch_dir / "qwen3-8b_decode_32k_16x16.json") as f:
+        rec = json.load(f)
+    assert {k: rec[k] for k in ("arch", "shape", "mesh", "kind", "devices",
+                                "ran", "why_meta")} == {
+        "arch": "qwen3-8b", "shape": "decode_32k", "mesh": "16x16",
+        "kind": "decode", "devices": 256, "ran": "meta",
+        "why_meta": "device cpu"}
+    memory = rec["main"]["memory"]
+    assert memory["argument_bytes"] > 0 and memory["temp_bytes"] is None
+    assert rec["main"]["flops"] > 0 and rec["main"]["bytes_accessed"] > 0
+    assert set(rec["main"]["collectives"]) == {"total_bytes", "bytes_by_op",
+                                               "count_by_op"}
+    assert rec["corrected"]["flops"] == rec["main"]["flops"]
+    assert set(rec["probes"]) == {"probe_lo", "probe_hi"}
+    with pytest.raises(SystemExit) as exit_:
+        dryrun.main(["--shape", "train"])
+    assert exit_.value.code != 0
 
 
 def test_kernel_sizes_past_int32_are_refused():

@@ -1,13 +1,17 @@
-"""The dry-run's GUS cells on the card: at the reference's shrunk cells of
+"""The dry-run's cells on the card: at the reference's shrunk GUS cells of
 2 and 4 shards the card's query, mutate and delete steps equal the same
-steps on CPU copies of the card's state bit for bit, and one full-size
-16x16 query record (4,096 partitions x 8,192 slots, 4,096 queries) runs
-and passes its check. Run on the H100 with
+steps on CPU copies of the card's state bit for bit, one full-size 16x16
+query record (4,096 partitions x 8,192 slots, 4,096 queries) runs and
+passes its check, a reduced architecture cell runs whole on the card
+against the CPU, and a published architecture is swept on the meta
+device. Run on the H100 with
 
     python -m pytest -q -m cuda tests/test_torch_dryrun_cuda.py
 
 Without a card every test here skips (the ``card`` fixture decides).
 """
+import os
+
 import pytest
 import torch
 
@@ -80,3 +84,36 @@ def test_full_size_query_record(card, tmp_path):
     assert memory["temp_bytes"] > 0 and memory["code_bytes"] > 0
     assert rec["step_ms"] > 0
     assert 0 < rec["profile"]["device_busy_ms"] <= rec["profile"]["wall_ms"]
+
+
+def test_reduced_arch_cell_runs_whole_on_the_card(card, tmp_path):
+    """A reduced architecture cell at its own shape (whisper, decode_32k:
+    128 requests on a 32,768-token cache) run whole on the card: its
+    first step within the check's bound of the same step on CPU copies
+    of the first rows, its peak measured."""
+    from repro_torch.configs import reduced_config
+    rec = dryrun.run_cell("whisper-tiny", "decode_32k", False,
+                          probes=False, cfg=reduced_config("whisper-tiny"),
+                          device=card, whole=True, runs=2, check=True,
+                          out_dir=str(tmp_path))
+    assert rec["ran"] == "card" and rec["step_ms"] > 0
+    assert rec["check"]["worst_share_of_bound"] <= 1.0
+    assert rec["main"]["memory"]["peak_bytes"] > 0
+
+
+def test_meta_sweep_of_a_published_arch(card, tmp_path):
+    """qwen3-8b at its published config over every shape and both meshes
+    on the card: no cell fits 85% of the card, so all are sized on the
+    meta device with the card's limit in their plan, none fails, and the
+    non-applicable long_500k cells are skipped."""
+    from repro_torch.configs.base import SHAPES
+    recs = dryrun.sweep(["qwen3-8b"], list(SHAPES), [False, True],
+                        out_dir=str(tmp_path), device=card)
+    assert len(recs) == 8 and len(os.listdir(tmp_path)) == 8
+    assert not [r for r in recs if "error" in r]
+    live = [r for r in recs if "skipped" not in r]
+    assert len(live) == 6
+    for rec in live:
+        assert rec["ran"] == "meta" and rec["plan"]["fits"] is False
+        assert rec["plan"]["need_gb"] > rec["plan"]["limit_gb"] > 0
+        assert rec["corrected"]["flops"] == rec["main"]["flops"]

@@ -162,14 +162,29 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    one JSON line of the records. It fails on an ``error`` record, a
    named cell that did not run on the card or a failed check, and must
    launch none of the GUS kernels;
-12. print one JSON line with each kernel's numbers (with its launches on
+12. the rest of the public surface (run after phase 11; ``[surface]`` and
+   ``[examples]`` lines): on phase 2's index as its stream left it (with
+   tombstones), (a) ``ScannIndex.rebuild`` timed beside phase 2's
+   bootstrap, its peak, the live count and recall@10 against phase 2's
+   brute oracle before and after (within 0.02), and the fused shortlist
+   and rescore kernels launched by the first search after it; (b)
+   ``search_threshold(tau=0)`` for the 64 recall queries against
+   ``BruteIndex.search_threshold``: every id it returns in the exact
+   negative-distance set with the same distance bit for bit, and the
+   share of that set it returns; (c) ``ann.sparse.sparse_dot_many_many``
+   at the brute search's shape bit for bit its plain version; (d) the
+   five ``examples/torch_*.py`` side by side, each in its own process on
+   the card with ``jax`` blocked, their quality lines held to the bars of
+   ``check_example`` and their wall times printed;
+13. print one JSON line with each kernel's numbers (with its launches on
    each path, ``launches_serve`` the serving phase's,
    ``launches_sharded`` the sharded phase's, ``launches_dryrun`` the
    dry-run's, ``launches_lm`` the LM tower's (phases 8 and 9),
    ``launches_train`` the training phase's and ``launches_arch`` the
-   architecture cells', all 0), then the result line.
+   architecture cells', all 0, and ``launches_surface`` phase 12's (a)-(c)),
+   then the result line.
 
-Phases 2-4, 6, 6s, 5m, 7, 8, 9, 10 and 11 each zero the kernel launch counts just
+Phases 2-4, 6, 6s, 5m, 7, 8, 9, 10, 11 and 12 each zero the kernel launch counts just
 before they start and read them just after; every kernel a phase runs
 must have launched in it. The index paths reach the exact rescore through
 ``sparse_rescore_topk`` and pair scoring through ``pair_score``, so
@@ -192,6 +207,8 @@ import copy
 import dataclasses
 import functools
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -3385,6 +3402,203 @@ def run_dryrun_arch_path(torch, dev, archs=None, shapes=None,
     return out
 
 
+# ---------------------------------------------------------------- phase 12
+
+SAME_CLUSTER_BAR = 0.7      # tests/test_system.py:159
+# examples/serve_gus.py prints 0.48-0.70 at its own settings (scann 0.53;
+# sharded at 1, 2 and 4 shards 0.48, 0.62, 0.70), below the bar above
+SERVE_GUS_BAR = 0.4
+RATIO_BAR = 2.0             # benchmarks/torch_time_to_flag.py's gate
+# example -> the arguments the smoke adds
+EXAMPLES = {"quickstart": (), "dynamic_stream": (), "dynamic_graph": (),
+            "android_security": (), "serve_gus": ("--sweep-shards",)}
+_NO_JAX = """
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+"""
+
+
+def example_command(name: str, *args) -> list:
+    """The command that runs ``examples/torch_<name>.py`` with ``jax`` and
+    the reference package blocked."""
+    return [sys.executable, "-c", _NO_JAX,
+            str(SRC.parent / "examples" / f"torch_{name}.py"), *args]
+
+
+def _fields(line: str) -> dict:
+    """``key=value`` pairs of a printed line, numbers as floats."""
+    out = {}
+    for key, value in re.findall(r"([\w-]+)=([^\s|]+)", line):
+        try:
+            out[key] = float(value)
+        except ValueError:
+            out[key] = value
+    return out
+
+
+def check_example(name: str, stdout: str) -> dict:
+    """The quality lines ``examples/torch_<name>.py`` printed, held to the
+    bars its JAX counterpart's output is read against: the same-cluster
+    rate, a recovery that brings back every live point (and the graph's
+    edge set), the time-to-flag ratio. Raises AssertionError."""
+    lines = [ln for ln in stdout.splitlines()
+             if ln.startswith(f"[{name}] ")]
+    if name == "serve_gus":
+        rates = [_fields(ln)["quality"] for ln in lines
+                 if "quality=" in ln]
+        if not rates or min(rates) < SERVE_GUS_BAR:
+            raise AssertionError(f"serve_gus quality {rates} below "
+                                 f"{SERVE_GUS_BAR}")
+        return {"quality": rates}
+    if len(lines) != 1:
+        raise AssertionError(f"{name} printed {len(lines)} summary lines")
+    got = _fields(lines[0])
+    if name == "android_security":
+        if not got["ratio"] >= RATIO_BAR:
+            raise AssertionError(f"time-to-flag ratio {got['ratio']}")
+    if "same-cluster" in got and not (got["same-cluster"]
+                                      >= SAME_CLUSTER_BAR):
+        raise AssertionError(f"{name} same-cluster {got['same-cluster']}")
+    if "recovered" in got and got["recovered"] != got["live"]:
+        raise AssertionError(f"{name} recovered {got['recovered']} of "
+                             f"{got['live']} live points")
+    if got.get("edges_identical", "True") != "True":
+        raise AssertionError(f"{name}: the recovered edge set differs")
+    return got
+
+
+def launch_examples(device_args: tuple = (), args: dict = EXAMPLES,
+                    timeout: float = 600) -> dict:
+    """Run each example of ``args`` (name -> its arguments) in its own
+    process with ``jax`` blocked, side by side. -> name -> (the completed
+    process, its wall seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+
+    def run(name):
+        t0 = time.perf_counter()
+        out = subprocess.run(example_command(name, *args[name],
+                                             *device_args),
+                             capture_output=True, text=True, env=env,
+                             timeout=timeout)
+        return out, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(args)) as pool:
+        futures = {name: pool.submit(run, name) for name in args}
+        return {name: f.result() for name, f in futures.items()}
+
+
+def run_examples(dev) -> dict:
+    """Phase 12 (d): the five examples side by side, on the card (no
+    ``--device``: their default) or, when ``dev`` is the CPU, with
+    ``--device cpu``; each one's quality lines checked."""
+    t0 = time.perf_counter()
+    runs = launch_examples(("--device", "cpu") if dev.type == "cpu" else ())
+    wall = time.perf_counter() - t0
+    out = {}
+    for name, (proc, seconds) in runs.items():
+        if proc.returncode:
+            raise AssertionError(f"examples/torch_{name}.py exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        out[name] = dict(check_example(name, proc.stdout),
+                         wall_s=round(seconds, 2))
+        print(f"[examples] {name}: " + json.dumps(out[name]))
+    print(f"[examples] {len(runs)} examples side by side in {wall:.1f} s")
+    return dict(examples=out, wall_s=wall)
+
+
+def run_surface_path(torch, dev, ctx: dict, bootstrap_s: float) -> dict:
+    """Phase 12 (a)-(c) on phase 2's index after its stream: (a)
+    ``ScannIndex.rebuild`` timed, its peak, the live count and recall@10
+    against phase 2's brute oracle before and after (within 0.02), the
+    kernels of the first search after it; (b) ``search_threshold(tau=0)``
+    for the 64 recall queries, every id it returns in the exact
+    negative-distance set of ``BruteIndex.search_threshold`` with the same
+    distance bit for bit; (c) ``sparse_dot_many_many`` at the brute
+    search's shape, bit for bit its plain version."""
+    from repro_torch.ann import BruteIndex
+    from repro_torch.ann.sparse import sparse_dot_many_many
+    from repro_torch.core.types import SparseBatch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sparse_dot import sparse_dot_plain
+
+    gus = ctx["gus"]
+    index = gus.index
+    emb = gus.embedder(gus.store.gather(ctx["qids"]))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    recall_before = _recall_at_10(ctx["exact"], index.search(emb, 10))
+    n_before = len(index)
+    slots_before = {pid: rec[0] for pid, rec in index.slot_of.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    index.rebuild()
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    before = ops.launch_counts()
+    found = index.search(emb, 10)
+    first = {n: c - before[n] for n, c in ops.launch_counts().items()}
+    recall_after = _recall_at_10(ctx["exact"], found)
+    # the live ids keep their order, so slot i is the i-th live id's
+    if (len(index) != n_before
+            or list(index.slot_of) != list(slots_before)
+            or [rec[0] for rec in index.slot_of.values()]
+            != list(range(n_before))):
+        raise AssertionError("rebuild changed the live set or its order")
+
+    live = gus.store.ids()
+    brute = BruteIndex(gus.embedder.k_max, device=gus.device)
+    brute.upsert(live, gus.embedder(gus.store.gather(live)))
+    t0 = time.perf_counter()
+    approx = index.search_threshold(emb, 0.0)
+    threshold_ms = (time.perf_counter() - t0) * 1e3
+    exact = brute.search_threshold(emb, 0.0)
+    hits = total = 0
+    for (a_ids, a_d), (e_ids, e_d) in zip(approx, exact):
+        want = dict(zip(e_ids.tolist(), e_d.view(np.int32).tolist()))
+        for pid, bits in zip(a_ids.tolist(), a_d.view(np.int32).tolist()):
+            if want.get(pid) != bits:
+                raise AssertionError(f"search_threshold returned {pid} "
+                                     f"outside the exact set or with "
+                                     f"another distance")
+        hits += len(a_ids)
+        total += len(e_ids)
+
+    db = SparseBatch(brute.db_idx, brute.db_val)
+    got = sparse_dot_many_many(emb, db)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = sparse_dot_plain(emb.indices, emb.values, db.indices, db.values)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("sparse_dot_many_many differs from its plain "
+                             "version")
+    out = dict(live_before=n_before, live_after=len(index),
+               rebuild_s=rebuild_s, bootstrap_s=bootstrap_s,
+               held_gb=held / 1e9, rebuild_peak_gb=peak / 1e9,
+               recall_before=recall_before, recall_after=recall_after,
+               first_search_launches={n: first[n] for n in (
+                   "fused_query", "sparse_rescore_topk")},
+               threshold_share=hits / max(total, 1), threshold_hits=hits,
+               threshold_exact=total, threshold_ms=threshold_ms,
+               many_many_shape=[emb.batch, db.batch, emb.k],
+               launches=counts)
+    print("[surface] " + json.dumps(out))
+    if abs(recall_after - recall_before) > 0.02:
+        raise AssertionError(f"recall@10 moved {recall_before} -> "
+                             f"{recall_after} over the rebuild")
+    _require_launched(first, ("fused_query", "sparse_rescore_topk"),
+                      "the first search after the rebuild")
+    _require_launched(counts, ("fused_query", "sparse_rescore_topk",
+                               "sparse_dot"), "the surface phase")
+    return out
+
+
 SOURCES = {  # kernel -> (CUDA source, TPU kernel it replaces, path)
     "fused_query": ("src/repro_torch/kernels/csrc/fused_query.cu",
                     "src/repro/kernels/fused_query.py:172", "main"),
@@ -3434,6 +3648,8 @@ def main() -> int:
     configs = run_index_configs(torch, ctx)
     graph, graph_shapes = run_graph_path(torch, dev, ctx)
     graph_engine = ctx.pop("graph")
+    # phase 12 reads phase 2's index as its stream left it
+    surface_ctx = {key: ctx[key] for key in ("gus", "qids", "exact")}
     del ctx
     serving = run_serving_path(torch, OGB_ARXIV_NODES, dev, graph_engine)
     del graph_engine
@@ -3459,6 +3675,13 @@ def main() -> int:
     families = run_lm_families_path(torch, dev)
     train = run_train_path(torch, dev)
     arch = run_dryrun_arch_path(torch, dev)
+    t12 = time.perf_counter()
+    surface = run_surface_path(torch, dev, surface_ctx,
+                               main_path["bootstrap_s"])
+    del surface_ctx
+    torch.cuda.empty_cache()
+    examples = run_examples(dev)
+    phase12_s = time.perf_counter() - t12
 
     path_counts = {"main": main_path["launches"],
                    "configs": configs["launches"],
@@ -3484,6 +3707,7 @@ def main() -> int:
             launches_lm=lm["launches"][name] + families["launches"][name],
             launches_train=train["launches"][name],
             launches_arch=arch["launches"][name],
+            launches_surface=surface["launches"][name],
             max_abs_err=rep["max_abs_err"], ms=rep["ms"],
             device_ms=rep["device_ms"], device_calls=rep.get("device_calls"),
             plain_ms=rep["plain_ms"],
@@ -3498,7 +3722,9 @@ def main() -> int:
                       name for name in report if "dryrun" in name)):
         print(f"[kernels] {extra}: " + json.dumps(report[extra]))
     print(f"[smoke] every phase passed in "
-          f"{time.perf_counter() - t_start:.1f} s")
+          f"{time.perf_counter() - t_start:.1f} s (phase 12 "
+          f"{phase12_s:.1f} s: rebuild {surface['rebuild_s']:.2f} s, "
+          f"examples {examples['wall_s']:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

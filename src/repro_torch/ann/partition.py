@@ -15,6 +15,7 @@ its centroids differ from the reference's; they are judged by recall.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -139,3 +140,10 @@ def assign_partitions_local(x, centroids, owners, *, c_loc: int,
 def partition_scores(q: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     """Query-to-partition dot scores [B, C] (higher = search first)."""
     return q @ centroids.T
+
+
+def quantized_partition_sizes(p1: np.ndarray, p2: np.ndarray,
+                              n_clusters: int) -> np.ndarray:
+    """Copies per partition: the primary and the SOAR secondary counts."""
+    return (np.bincount(np.asarray(p1), minlength=n_clusters)
+            + np.bincount(np.asarray(p2), minlength=n_clusters))

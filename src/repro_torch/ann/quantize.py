@@ -85,3 +85,11 @@ def query_lut(q: torch.Tensor, books: torch.Tensor) -> torch.Tensor:
     """LUT f32 [B, M, n_centers]: dot of each query subvector w/ each center."""
     q_sub = split_subspaces(q, books.shape[0])                        # [B, M, ds]
     return torch.einsum("bmd,mcd->bmc", q_sub, books).contiguous()
+
+
+def lut_scores(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Plain LUT accumulation: lut [M, C] x codes [N, M] -> scores [N]
+    (the oracle of the ``pq_score`` kernel, not the kernel)."""
+    m = lut.shape[0]
+    per_sub = lut[torch.arange(m, device=lut.device)[None, :], codes.long()]
+    return per_sub.sum(-1)

@@ -223,6 +223,23 @@ class ScannIndex:
         idx._alloc(cap, s)
         return idx
 
+    def rebuild(self) -> None:
+        """Periodic retrain + compaction on the live points (paper §4.3):
+        their rows in ``slot_of``'s insertion order, gathered on the
+        index's device, then ``build`` from scratch. The old slabs are
+        dropped before ``build`` allocates the new ones, so the peak holds
+        one layout and the live rows, not two layouts."""
+        if not self.slot_of:
+            return
+        pids = np.fromiter(self.slot_of, np.int64, len(self.slot_of))
+        slots = torch.as_tensor([rec[0] for rec in self.slot_of.values()],
+                                dtype=torch.int64, device=self.device)
+        emb = SparseBatch(self.sp_idx[slots], self.sp_val[slots])
+        self.slot_of.clear()
+        self.sp_idx = self.sp_val = None
+        self.members = self.codes_list = self.valid_list = None
+        self.build(pids, emb)
+
     # ----------------------------------------------------------- mutations
 
     def upsert(self, ids: np.ndarray, emb: SparseBatch) -> None:
@@ -363,3 +380,15 @@ class ScannIndex:
             ids = np.pad(ids, pad, constant_values=-1)
             dists = np.pad(dists, pad, constant_values=np.inf)
         return ids, dists.astype(np.float32)
+
+    def search_threshold(self, emb: SparseBatch, tau: float = 0.0):
+        """All shortlisted points with Dist < tau, per query row in the
+        search's order: approximate, bounded by ``reorder`` (the exact form
+        is ``BruteIndex.search_threshold``). Returns a list of (ids, dists)
+        numpy arrays."""
+        ids, dists = self.search(emb, self.cfg.reorder)
+        out = []
+        for row_ids, row_d in zip(ids, dists):
+            hit = (row_d < tau) & (row_ids >= 0)
+            out.append((row_ids[hit], row_d[hit]))
+        return out

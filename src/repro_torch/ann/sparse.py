@@ -1,7 +1,12 @@
-"""CountSketch over the fixed-nnz padded sparse format (port of
-``count_sketch`` in ``repro/ann/sparse.py``): a feature-hashing projection
-into a d_proj-dim dense space, used by the partitioner and the PQ
-codebooks. Exact sparse dot products live in ``kernels/sparse_dot.py``.
+"""Ops over the fixed-nnz padded sparse format (port of
+``repro/ann/sparse.py``):
+
+* the exact sparse dots: ``sparse_dot_pair`` (two rows, plain torch),
+  ``sparse_dot_one_many`` and ``sparse_dot_many_many`` (through the
+  shared-db ``sparse_dot`` kernel on the card, its plain version on the
+  CPU);
+* ``count_sketch`` — the feature-hashing projection into a d_proj-dim
+  dense space, used by the partitioner and the PQ codebooks.
 """
 from __future__ import annotations
 
@@ -9,6 +14,25 @@ import torch
 
 from repro_torch.core import hashing
 from repro_torch.core.types import PAD_INDEX, SparseBatch
+from repro_torch.kernels import ops
+
+
+def sparse_dot_pair(qi, qv, di, dv) -> torch.Tensor:
+    """Dot of two padded sparse rows: sum over matching indices."""
+    eq = (qi[:, None] == di[None, :]) & (qi[:, None] != PAD_INDEX)
+    return torch.where(eq, qv[:, None] * dv[None, :], 0.0).sum()
+
+
+def sparse_dot_one_many(qi, qv, db_idx, db_val) -> torch.Tensor:
+    """One query row vs a database block.
+
+    qi,qv: [Kq]; db_idx,db_val: [N, Kd] -> scores f32 [N]."""
+    return ops.sparse_dot(qi[None], qv[None], db_idx, db_val)[0]
+
+
+def sparse_dot_many_many(q: SparseBatch, db: SparseBatch) -> torch.Tensor:
+    """All-pairs scores f32 [Bq, N]: one launch of the shared-db kernel."""
+    return ops.sparse_dot(q.indices, q.values, db.indices, db.values)
 
 
 def count_sketch(sp: SparseBatch, d_proj: int, seed: int = 7) -> torch.Tensor:

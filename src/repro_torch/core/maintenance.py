@@ -9,10 +9,10 @@ sharded backend (``ann/sharded_index.py``) reads ``compact``,
 ``headroom``, ``soar``, ``resplit`` and ``resplit_metric``. The
 reference's one-release deprecation shims (``resolve_legacy``, the legacy
 ``ShardedConfig`` fields, ``GraphConfig.repair_per_batch``) exist only
-for old in-repo spellings and are not ported. The
-``SnapshotStateful`` contract is kept by name: the feature store, both
-indexes, the graph store, the multi-modal store and ``DynamicGUS`` each
-have ``snapshot_state() -> dict`` (host arrays only) and
+for old in-repo spellings and are not ported. ``SnapshotStateful`` is
+the persistence contract: the feature store, the indexes, the graph
+store, the multi-modal store, ``IdfCounts`` and ``DynamicGUS`` each have
+``snapshot_state() -> dict`` (host arrays only) and
 ``restore_state(state)``, and the engine composes them.
 
 ``staleness_bound`` is measured in applied mutation batches and bounds how
@@ -24,6 +24,7 @@ maintenance plane (``serve/maintenance.py``).
 from __future__ import annotations
 
 import dataclasses
+from typing import Protocol, runtime_checkable
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,3 +59,19 @@ class MaintenanceConfig:
                 f"resplit_metric={self.resplit_metric!r} must be "
                 "'occupancy' or 'load' (by-occupancy slab fill vs. "
                 "accumulated per-shard query load)")
+
+
+@runtime_checkable
+class SnapshotStateful(Protocol):
+    """Snapshot/recover contract composed by ``GusEngine``.
+
+    ``snapshot_state()`` returns a plain dict (host arrays / scalars
+    only) that ``restore_state`` accepts on a freshly-built instance of
+    the same configuration. Implementors: ``FeatureStore``, the ANN
+    backends, ``DynamicGraphStore``, ``MultiModalStore``, ``IdfCounts``
+    and ``DynamicGUS`` (which composes them).
+    """
+
+    def snapshot_state(self) -> dict: ...
+
+    def restore_state(self, state: dict) -> None: ...

@@ -52,6 +52,14 @@ class FeatureSpec:
             shapes[f"scalar:{name}"] = ((batch,), np.dtype(np.float32))
         return shapes
 
+    def validate(self, features: Mapping) -> None:
+        """Raise unless ``features`` holds exactly this spec's keys."""
+        want = set(self.feature_shapes(1))
+        have = set(features)
+        if want != have:
+            raise ValueError(f"feature keys mismatch: want {sorted(want)}, "
+                             f"have {sorted(have)}")
+
 
 @dataclasses.dataclass
 class SparseBatch:
@@ -71,6 +79,10 @@ class SparseBatch:
     @property
     def k(self) -> int:
         return self.indices.shape[1]
+
+    def nnz(self) -> torch.Tensor:
+        """Live entries per row: not padding and not a zero value."""
+        return ((self.indices != PAD_INDEX) & (self.values != 0.0)).sum(-1)
 
     def __getitem__(self, sl) -> "SparseBatch":
         return SparseBatch(self.indices[sl], self.values[sl])

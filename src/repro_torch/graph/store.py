@@ -610,6 +610,10 @@ class DynamicGraphStore:
         self._cc_cache = None
         self._view = None
 
+    def restore(self, state: dict) -> None:
+        """Alias of ``restore_state`` (the ``SnapshotStateful`` spelling)."""
+        self.restore_state(state)
+
     # --------------------------------------------------------------- stats
 
     def describe(self) -> dict:

@@ -1,5 +1,7 @@
 """Small helpers: device selection, wall-clock timing, batch padding,
 the tree walks and the HLO collective parser."""
+from repro_torch.utils.tree import tree_size_bytes, tree_param_count, tree_cast
+from repro_torch.utils.timing import Timer, percentiles
 
 
 def pow2_pad(n: int, cap: int | None = None) -> int:

@@ -1,0 +1,7 @@
+"""Host time of a neighborhood RPC outside its embed, search and score
+spans (ms): ``FeatureStore.gather``, the id maps, the host copies."""
+from harness import readers as R
+
+
+def read(t):
+    return R.self_ms_per_rpc(t, "query", ("embedding", "index", "scoring"))

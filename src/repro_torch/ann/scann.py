@@ -32,6 +32,7 @@ from repro_torch.ann.sparse import count_sketch
 from repro_torch.core.types import PAD_INDEX, SparseBatch
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import topk_ref
+from repro_torch.obs import stage
 from repro_torch.utils.device import record_writes, resolve
 
 
@@ -81,30 +82,34 @@ def _query_step(q_idx, q_val, q_sketch, centroids, books, members,
     m = books.shape[0]
 
     # 1) partition selection (dot scores)
-    pscores = part_mod.partition_scores(q_sketch, centroids)        # [B, C]
-    top_ps, top_parts = topk_ref(pscores, nprobe)                  # [B, np]
+    with stage("index.partitions"):
+        pscores = part_mod.partition_scores(q_sketch, centroids)    # [B, C]
+        top_ps, top_parts = topk_ref(pscores, nprobe)              # [B, np]
 
     # 2+3) PQ LUT scoring over the probed slabs, SOAR dedup, shortlist
-    lut = pq.query_lut(q_sketch, books)                             # [B, M, C]
-    flat_slots = members[top_parts].reshape(b, -1)                  # [B, N]
-    flat_codes = codes_list[top_parts].reshape(b, -1, m)            # [B, N, M]
-    flat_valid = valid_list[top_parts].reshape(b, -1) & (flat_slots >= 0)
-    bias = top_ps.repeat_interleave(s, dim=-1)                      # + q . c_p
-    r = min(reorder, flat_slots.shape[-1])
-    if fused:
-        short_scores, short_pos = ops.pq_score_dedup_topk(
-            lut, flat_codes, flat_slots, r, valid=flat_valid, bias=bias,
-            quantized=pq_int8)
-    else:
-        approx = ops.pq_scores(lut, flat_codes, quantized=pq_int8)
-        approx = torch.where(flat_valid, approx + bias, float("-inf"))
-        short_scores, short_pos = ops.topk_select(approx, r)
-        short_scores = ops.dedup_mask(short_scores, short_pos, flat_slots,
-                                      flat_valid)
+    with stage("index.shortlist"):
+        lut = pq.query_lut(q_sketch, books)                     # [B, M, C]
+        flat_slots = members[top_parts].reshape(b, -1)              # [B, N]
+        flat_codes = codes_list[top_parts].reshape(b, -1, m)    # [B, N, M]
+        flat_valid = (valid_list[top_parts].reshape(b, -1)
+                      & (flat_slots >= 0))
+        bias = top_ps.repeat_interleave(s, dim=-1)              # + q . c_p
+        r = min(reorder, flat_slots.shape[-1])
+        if fused:
+            short_scores, short_pos = ops.pq_score_dedup_topk(
+                lut, flat_codes, flat_slots, r, valid=flat_valid, bias=bias,
+                quantized=pq_int8)
+        else:
+            approx = ops.pq_scores(lut, flat_codes, quantized=pq_int8)
+            approx = torch.where(flat_valid, approx + bias, float("-inf"))
+            short_scores, short_pos = ops.topk_select(approx, r)
+            short_scores = ops.dedup_mask(short_scores, short_pos,
+                                          flat_slots, flat_valid)
     # 4) exact sparse-space rescore of the shortlist (-inf entries, invalid
     # or a duplicate SOAR copy, drop out) and the final top-k, one kernel
-    return ops.sparse_rescore_topk(q_idx, q_val, flat_slots, short_pos,
-                                   short_scores, sp_idx, sp_val, k)
+    with stage("index.rescore"):
+        return ops.sparse_rescore_topk(q_idx, q_val, flat_slots, short_pos,
+                                       short_scores, sp_idx, sp_val, k)
 
 
 class ScannIndex:
@@ -360,26 +365,32 @@ class ScannIndex:
         each query gathers nprobe x slab candidates (about 0.6 MB at the
         arxiv-scale layout), so a graph repair flush of tens of thousands
         of ids would otherwise need tens of GB. Rows are independent."""
-        cfg = self.cfg
-        sk = count_sketch(emb, cfg.d_proj, cfg.seed)
-        parts = []
-        for lo in range(0, max(emb.batch, 1), SEARCH_CHUNK):
-            hi = lo + SEARCH_CHUNK
-            parts.append(_query_step(
-                emb.indices[lo:hi], emb.values[lo:hi], sk[lo:hi],
-                self.centroids, self.books, self.members, self.codes_list,
-                self.valid_list, self.sp_idx, self.sp_val,
-                nprobe=min(cfg.nprobe, cfg.n_partitions),
-                reorder=cfg.reorder, k=min(k, cfg.reorder), fused=cfg.fused,
-                pq_int8=cfg.pq_int8))
-        slots = torch.cat([p[0] for p in parts]).cpu().numpy()
-        dists = torch.cat([p[1] for p in parts]).cpu().numpy()
-        ids = np.where(slots >= 0, self.ids[np.maximum(slots, 0)], -1)
-        if k > ids.shape[1]:
-            pad = ((0, 0), (0, k - ids.shape[1]))
-            ids = np.pad(ids, pad, constant_values=-1)
-            dists = np.pad(dists, pad, constant_values=np.inf)
-        return ids, dists.astype(np.float32)
+        with stage("index.search", rows=int(emb.batch), k=int(k)):
+            cfg = self.cfg
+            with stage("index.sketch"):
+                sk = count_sketch(emb, cfg.d_proj, cfg.seed)
+            parts = []
+            for lo in range(0, max(emb.batch, 1), SEARCH_CHUNK):
+                hi = lo + SEARCH_CHUNK
+                parts.append(_query_step(
+                    emb.indices[lo:hi], emb.values[lo:hi], sk[lo:hi],
+                    self.centroids, self.books, self.members,
+                    self.codes_list, self.valid_list, self.sp_idx,
+                    self.sp_val, nprobe=min(cfg.nprobe, cfg.n_partitions),
+                    reorder=cfg.reorder, k=min(k, cfg.reorder),
+                    fused=cfg.fused, pq_int8=cfg.pq_int8))
+            # the host waits here for the search's device work
+            with stage("index.to_host"):
+                slots = torch.cat([p[0] for p in parts]).cpu().numpy()
+                dists = torch.cat([p[1] for p in parts]).cpu().numpy()
+            with stage("index.id_map"):
+                ids = np.where(slots >= 0, self.ids[np.maximum(slots, 0)],
+                               -1)
+                if k > ids.shape[1]:
+                    pad = ((0, 0), (0, k - ids.shape[1]))
+                    ids = np.pad(ids, pad, constant_values=-1)
+                    dists = np.pad(dists, pad, constant_values=np.inf)
+                return ids, dists.astype(np.float32)
 
     def search_threshold(self, emb: SparseBatch, tau: float = 0.0):
         """All shortlisted points with Dist < tau, per query row in the

@@ -15,17 +15,17 @@ from repro_torch.core.buckets import (BucketConfig, generate_buckets,
                                       make_bucket_params)
 from repro_torch.core.idf import FilterTable, IdfTable
 from repro_torch.core.types import FeatureSpec, SparseBatch, sort_sparse
+from repro_torch.obs import stage
 from repro_torch.utils.device import resolve
 
 
 def as_features(features: Mapping, device) -> dict:
     """Feature dict (numpy or tensors) -> tensors on ``device``."""
-    out = {}
-    for k, v in features.items():
-        if not isinstance(v, torch.Tensor):
-            v = torch.as_tensor(np.asarray(v))
-        out[k] = v.to(device)
-    return out
+    host = {k: v if isinstance(v, torch.Tensor)
+            else torch.as_tensor(np.asarray(v)) for k, v in features.items()}
+    with stage("embed.to_device",
+               bytes=lambda: sum(v.nbytes for v in host.values())):
+        return {k: v.to(device) for k, v in host.items()}
 
 
 @dataclasses.dataclass
@@ -65,21 +65,26 @@ class EmbeddingGenerator:
                                 self.spec, self.cfg, self.params)
 
     def __call__(self, features: Mapping) -> SparseBatch:
-        return embed_batch(as_features(features, self.device), self.spec,
-                           self.cfg, self.params, self.idf, self.filter)
+        with stage("embed.batch", rows=len(next(iter(features.values())))):
+            return embed_batch(as_features(features, self.device),
+                               self.spec, self.cfg, self.params, self.idf,
+                               self.filter)
 
 
 def embed_batch(features, spec: FeatureSpec, cfg: BucketConfig, params,
                 idf: IdfTable, filter_table: FilterTable) -> SparseBatch:
-    bucket_ids, valid = generate_buckets(features, spec, cfg, params)
-    weights = idf.lookup(bucket_ids)
-    keep = filter_table.keep_mask(bucket_ids) & valid
-    values = torch.where(keep, weights, 0.0).to(torch.float32)
+    with stage("embed.buckets"):
+        bucket_ids, valid = generate_buckets(features, spec, cfg, params)
+    with stage("embed.weights"):
+        weights = idf.lookup(bucket_ids)
+        keep = filter_table.keep_mask(bucket_ids) & valid
+        values = torch.where(keep, weights, 0.0).to(torch.float32)
 
-    # Dedup within a row (a bucket ID is a *set* member in Grale): sort by
-    # index, zero out repeats, then re-canonicalize so padding sorts last.
-    first = sort_sparse(bucket_ids, values)
-    dup = torch.zeros_like(first.indices, dtype=torch.bool)
-    dup[:, 1:] = first.indices[:, 1:] == first.indices[:, :-1]
-    values = torch.where(dup, 0.0, first.values)
-    return sort_sparse(first.indices, values)
+        # Dedup within a row (a bucket ID is a *set* member in Grale): sort
+        # by index, zero out repeats, then re-canonicalize so padding sorts
+        # last.
+        first = sort_sparse(bucket_ids, values)
+        dup = torch.zeros_like(first.indices, dtype=torch.bool)
+        dup[:, 1:] = first.indices[:, 1:] == first.indices[:, :-1]
+        values = torch.where(dup, 0.0, first.values)
+        return sort_sparse(first.indices, values)

@@ -22,6 +22,7 @@ to ``graph_timer``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Mapping
 
@@ -40,6 +41,7 @@ from repro_torch.core.types import (FeatureSpec, MutationBatch, NeighborResult,
 from repro_torch.graph.store import DynamicGraphStore, GraphConfig
 from repro_torch.multimodal import (MultiModalConfig, MultiModalStore,
                                     two_stage_neighbors)
+from repro_torch.obs import stage
 from repro_torch.utils.device import resolve
 from repro_torch.utils.timing import Timer
 
@@ -119,15 +121,17 @@ class FeatureStore:
     def gather(self, ids: np.ndarray) -> dict:
         """Batch features for ids (missing ids get zeros)."""
         ids = np.asarray(ids)
-        proto = self.spec.feature_shapes(1)
-        out = {k: np.zeros((ids.size,) + shape[1:], dtype)
-               for k, (shape, dtype) in proto.items()}
-        for j, pid in enumerate(ids.reshape(-1).tolist()):
-            row = self._rows.get(pid)
-            if row is not None:
-                for k, v in row.items():
-                    out[k][j] = v
-        return {k: v.reshape(ids.shape + v.shape[1:]) for k, v in out.items()}
+        with stage("gus.gather", rows=int(ids.size)):
+            proto = self.spec.feature_shapes(1)
+            out = {k: np.zeros((ids.size,) + shape[1:], dtype)
+                   for k, (shape, dtype) in proto.items()}
+            for j, pid in enumerate(ids.reshape(-1).tolist()):
+                row = self._rows.get(pid)
+                if row is not None:
+                    for k, v in row.items():
+                        out[k][j] = v
+            return {k: v.reshape(ids.shape + v.shape[1:])
+                    for k, v in out.items()}
 
     def __len__(self):
         return len(self._rows)
@@ -265,65 +269,72 @@ class DynamicGUS:
         deletes tombstone the row and purge back-edges; upserts re-query
         the point's scored neighborhood and apply two-sided edge updates;
         then one repair drain."""
-        with self.mutation_timer:
-            staged = self.encode_mutation(batch)
-            self.apply_mutation(staged)
-            self.finish_mutation(staged)
-        self.seq_applied += 1
-        self.maybe_reload_multimodal()
-        if self.graph is not None:
-            with self.graph_timer:
-                self.graph_apply(staged)
-                self.flush_graph_repair()
-            if self.maintenance.staleness_bound > 0:
-                self.graph.publish(seq=self.seq_applied)
+        with stage("gus.mutate", rows=lambda: int(np.asarray(batch.ids).size)):
+            with self.mutation_timer:
+                staged = self.encode_mutation(batch)
+                self.apply_mutation(staged)
+                self.finish_mutation(staged)
+            self.seq_applied += 1
+            self.maybe_reload_multimodal()
+            if self.graph is not None:
+                with self.graph_timer:
+                    self.graph_apply(staged)
+                    self.flush_graph_repair()
+                if self.maintenance.staleness_bound > 0:
+                    self.graph.publish(seq=self.seq_applied)
         return staged.n
 
     def encode_mutation(self, batch: MutationBatch) -> StagedMutation:
         """Stage A: parse the batch, normalize features to the store's
         dtypes, embed, and run the backend's pure encode."""
-        kinds = np.asarray(batch.kinds)
-        ids = np.asarray(batch.ids)
-        del_mask = kinds == MUTATION_DELETE
-        dels = ids[del_mask] if del_mask.any() else None
-        up_ids = feats = emb = index_staged = None
-        up_mask = ~del_mask
-        if up_mask.any():
-            up_ids = ids[up_mask]
-            proto = self.spec.feature_shapes(1)
-            feats = {k: np.asarray(v)[up_mask].astype(proto[k][1], copy=False)
-                     for k, v in batch.features.items()}
-            emb = self.embedder(feats)
-            index_staged = self.index.encode_upsert(up_ids, emb)
-        buckets = None
-        if self.multimodal is not None and feats is not None:
-            # a pure function of the features: staging keeps encode pure
-            b_ids, b_valid = self.embedder.buckets(feats)
-            buckets = (b_ids.cpu().numpy(), b_valid.cpu().numpy())
-        return StagedMutation(n=int(ids.size), dels=dels, up_ids=up_ids,
-                              feats=feats, emb=emb, index_staged=index_staged,
-                              buckets=buckets)
+        with stage("mutate.encode"):
+            kinds = np.asarray(batch.kinds)
+            ids = np.asarray(batch.ids)
+            del_mask = kinds == MUTATION_DELETE
+            dels = ids[del_mask] if del_mask.any() else None
+            up_ids = feats = emb = index_staged = None
+            up_mask = ~del_mask
+            if up_mask.any():
+                up_ids = ids[up_mask]
+                proto = self.spec.feature_shapes(1)
+                feats = {k: np.asarray(v)[up_mask].astype(proto[k][1],
+                                                          copy=False)
+                         for k, v in batch.features.items()}
+                emb = self.embedder(feats)
+                index_staged = self.index.encode_upsert(up_ids, emb)
+            buckets = None
+            if self.multimodal is not None and feats is not None:
+                # a pure function of the features: staging keeps encode pure
+                b_ids, b_valid = self.embedder.buckets(feats)
+                buckets = (b_ids.cpu().numpy(), b_valid.cpu().numpy())
+            return StagedMutation(n=int(ids.size), dels=dels,
+                                  up_ids=up_ids, feats=feats, emb=emb,
+                                  index_staged=index_staged, buckets=buckets)
 
     def apply_mutation(self, staged: StagedMutation) -> None:
         """Stage B: tombstone deletes, write the staged upserts, update the
         feature store."""
-        if staged.dels is not None:
-            self.index.delete(staged.dels)
-            self.store.drop(staged.dels)
-            if self.multimodal is not None:
-                self.multimodal.delete(staged.dels)
-        if staged.up_ids is not None:
-            staged.pending = self.index.begin_upsert(
-                staged.up_ids, staged.emb, staged.index_staged)
-            self.store.put(staged.up_ids, staged.feats)
-            if self.multimodal is not None:
-                self.multimodal.upsert(staged.up_ids, staged.emb,
-                                       *staged.buckets)
+        with stage("mutate.apply"):
+            if staged.dels is not None:
+                with stage("index.delete", rows=int(staged.dels.size)):
+                    self.index.delete(staged.dels)
+                self.store.drop(staged.dels)
+                if self.multimodal is not None:
+                    self.multimodal.delete(staged.dels)
+            if staged.up_ids is not None:
+                with stage("index.write", rows=int(staged.up_ids.size)):
+                    staged.pending = self.index.begin_upsert(
+                        staged.up_ids, staged.emb, staged.index_staged)
+                self.store.put(staged.up_ids, staged.feats)
+                if self.multimodal is not None:
+                    self.multimodal.upsert(staged.up_ids, staged.emb,
+                                           *staged.buckets)
 
     def finish_mutation(self, staged: StagedMutation) -> None:
         """Barrier: after this, the batch is query-visible."""
         if staged.up_ids is not None:
-            self.index.finish_upsert(staged.pending)
+            with stage("mutate.finish"):
+                self.index.finish_upsert(staged.pending)
 
     def graph_apply(self, staged: StagedMutation,
                     reuse_emb: bool = False) -> None:
@@ -334,19 +345,20 @@ class DynamicGUS:
         store holds the same feature values), one embed less a batch."""
         if self.graph is None:
             return
-        if staged.dels is not None:
-            self.graph.delete(staged.dels)
-        if staged.up_ids is not None:
-            probe_k = self.graph.cfg.probe_k()
-            if reuse_emb:
-                res = self._neighbors_impl(staged.feats, probe_k,
-                                           exclude_ids=staged.up_ids,
-                                           emb=staged.emb,
-                                           buckets=staged.buckets)
-            else:
-                res = self._index_neighbors_of_ids(staged.up_ids, probe_k,
-                                                   timed=False)
-            self.graph.upsert(staged.up_ids, res)
+        with stage("graph.apply"):
+            if staged.dels is not None:
+                self.graph.delete(staged.dels)
+            if staged.up_ids is not None:
+                probe_k = self.graph.cfg.probe_k()
+                if reuse_emb:
+                    res = self._neighbors_impl(staged.feats, probe_k,
+                                               exclude_ids=staged.up_ids,
+                                               emb=staged.emb,
+                                               buckets=staged.buckets)
+                else:
+                    res = self._index_neighbors_of_ids(
+                        staged.up_ids, probe_k, timed=False)
+                self.graph.upsert(staged.up_ids, res)
 
     def flush_graph_repair(self, limit: int | None = None) -> int:
         """Drain the graph's repair queue: rows left under-full by deletes
@@ -355,12 +367,13 @@ class DynamicGUS:
         at ``limit`` (default ``MaintenanceConfig.repair_per_tick``)."""
         if self.graph is None:
             return 0
-        rep = self.graph.take_repair_ids(limit)
-        if rep.size:
-            self.graph.upsert(
-                rep, self._index_neighbors_of_ids(
-                    rep, self.graph.cfg.probe_k(), timed=False),
-                purge=False)
+        with stage("graph.repair"):
+            rep = self.graph.take_repair_ids(limit)
+            if rep.size:
+                self.graph.upsert(
+                    rep, self._index_neighbors_of_ids(
+                        rep, self.graph.cfg.probe_k(), timed=False),
+                    purge=False)
         return int(rep.size)
 
     # --------------------------------------------------- neighborhood RPC
@@ -370,7 +383,8 @@ class DynamicGUS:
                   exclude_ids: np.ndarray | None = None) -> NeighborResult:
         """Neighborhood of (possibly new) points given their features
         (paper §3.3.3): embed -> ANN search -> score -> respond."""
-        with self.query_timer:
+        with stage("gus.neighbors", ids=len(next(iter(features.values()))),
+                   k=int(k or self.cfg.scann_nn)), self.query_timer:
             return self._neighbors_impl(features, k, exclude_ids)
 
     def maybe_reload_multimodal(self) -> bool:
@@ -402,7 +416,9 @@ class DynamicGUS:
                   for kk, v in cand_feats.items()}
         # each query row is read once for its ids.shape[1] candidates
         weights = score_pairs(self.scorer_params, features, flat_c,
-                              self.spec, group=ids.shape[1]).cpu().numpy()
+                              self.spec, group=ids.shape[1])
+        with stage("score.to_host"):
+            weights = weights.cpu().numpy()
         weights = weights.reshape(ids.shape)
         weights = np.where(ids >= 0, weights, -np.inf)
         return NeighborResult(ids=ids, weights=weights.astype(np.float32),
@@ -420,27 +436,28 @@ class DynamicGUS:
         embed -> search -> score path."""
         ids = np.asarray(ids)
         k = k or self.cfg.scann_nn
-        if self.graph is not None and k <= self.graph.cfg.k:
-            if self.maintenance.staleness_bound > 0:
-                view = self.graph.view()
-                if view.has_ids(ids):
+        with stage("gus.neighbors", ids=int(ids.size), k=int(k)):
+            if self.graph is not None and k <= self.graph.cfg.k:
+                if self.maintenance.staleness_bound > 0:
+                    view = self.graph.view()
+                    if view.has_ids(ids):
+                        with self.query_timer:
+                            return view.neighbors_of_ids(ids, k)
+                elif self.graph.has_ids(ids):
                     with self.query_timer:
-                        return view.neighbors_of_ids(ids, k)
-            elif self.graph.has_ids(ids):
-                with self.query_timer:
-                    return self.graph.neighbors_of_ids(ids, k)
-        return self._index_neighbors_of_ids(ids, k)
+                        return self.graph.neighbors_of_ids(ids, k)
+            return self._index_neighbors_of_ids(ids, k)
 
     def _index_neighbors_of_ids(self, ids: np.ndarray, k: int | None = None,
                                 timed: bool = True) -> NeighborResult:
         """The embed -> search -> score path, bypassing the graph (graph
         maintenance uses it with ``timed=False``, so its re-queries are
-        billed to ``graph_timer``, not to the query timer)."""
+        billed to ``graph_timer``, not to the query timer). The query
+        timer covers the gather of the query rows."""
         ids = np.asarray(ids)
-        feats = self.store.gather(ids)
-        if timed:
-            return self.neighbors(feats, k, exclude_ids=ids)
-        return self._neighbors_impl(feats, k, exclude_ids=ids)
+        with self.query_timer if timed else contextlib.nullcontext():
+            return self._neighbors_impl(self.store.gather(ids), k,
+                                        exclude_ids=ids)
 
     # --------------------------------------------------------- persistence
 
@@ -480,11 +497,12 @@ class DynamicGUS:
 
 def _drop_self(ids, dists, self_ids, k):
     """Remove each query's own id from its result row, then trim to k."""
-    out_ids = np.full((ids.shape[0], k), -1, ids.dtype)
-    out_d = np.full((ids.shape[0], k), np.inf, dists.dtype)
-    for r in range(ids.shape[0]):
-        keep = ids[r] != self_ids[r]
-        sel_ids, sel_d = ids[r][keep][:k], dists[r][keep][:k]
-        out_ids[r, :sel_ids.size] = sel_ids
-        out_d[r, :sel_d.size] = sel_d
-    return out_ids, out_d
+    with stage("gus.drop_self", rows=int(ids.shape[0])):
+        out_ids = np.full((ids.shape[0], k), -1, ids.dtype)
+        out_d = np.full((ids.shape[0], k), np.inf, dists.dtype)
+        for r in range(ids.shape[0]):
+            keep = ids[r] != self_ids[r]
+            sel_ids, sel_d = ids[r][keep][:k], dists[r][keep][:k]
+            out_ids[r, :sel_ids.size] = sel_ids
+            out_d[r, :sel_d.size] = sel_d
+        return out_ids, out_d

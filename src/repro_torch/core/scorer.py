@@ -26,6 +26,7 @@ from repro_torch.core.types import FeatureSpec
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (DENSE, FIELD_DTYPES, SCALAR, SET,
                                      pair_features_ref)
+from repro_torch.obs import stage
 from repro_torch.utils.device import resolve
 
 
@@ -112,10 +113,11 @@ def score_pairs(params: dict, fa, fb, spec: FeatureSpec,
     candidate rows."""
     dev = params["w0"].device
     keys, layout = pair_layout(spec)
-    dtypes = [FIELD_DTYPES[kind] for kind in layout.kinds]
-    q = [_tensor(fa[key], dev).to(dt) for key, dt in zip(keys, dtypes)]
-    c = [_tensor(fb[key], dev).to(dt) for key, dt in zip(keys, dtypes)]
-    return ops.pair_score(params, q, c, layout, group)
+    with stage("score.pairs", rows=len(fb[keys[0]])):
+        dtypes = [FIELD_DTYPES[kind] for kind in layout.kinds]
+        q = [_tensor(fa[key], dev).to(dt) for key, dt in zip(keys, dtypes)]
+        c = [_tensor(fb[key], dev).to(dt) for key, dt in zip(keys, dtypes)]
+        return ops.pair_score(params, q, c, layout, group)
 
 
 # ---------------------------------------------------------------- training

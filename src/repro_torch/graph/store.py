@@ -47,6 +47,7 @@ from repro_torch.core.maintenance import MaintenanceConfig
 from repro_torch.core.types import NeighborResult
 from repro_torch.graph.cc import DEAD_LABEL, propagate_labels
 from repro_torch.kernels import ops
+from repro_torch.obs import stage
 from repro_torch.utils import pow2_pad
 from repro_torch.utils.device import resolve
 
@@ -375,9 +376,10 @@ class DynamicGraphStore:
                 push_rows += [src, dst]
                 push_nbrs += [dst, src]
                 push_w += [w, w]
-        self._push_edges(np.asarray(push_rows, np.int32),
-                         np.asarray(push_nbrs, np.int32),
-                         np.asarray(push_w, np.float32))
+        with stage("graph.push_edges", rows=len(push_rows)):
+            self._push_edges(np.asarray(push_rows, np.int32),
+                             np.asarray(push_nbrs, np.int32),
+                             np.asarray(push_w, np.float32))
 
     def delete(self, ids) -> int:
         """Tombstone rows and purge back-edges; slots recycle."""

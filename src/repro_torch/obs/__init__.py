@@ -1,12 +1,15 @@
 """Telemetry plane: metrics registry, per-request tracing, lifecycle
-events (port of ``repro/obs``, pure Python, a copy of each module).
+events (port of ``repro/obs``, a copy of each module, pure Python but
+for the stages' profiler hook).
 
   registry.py — ``MetricsRegistry``: counters / gauges / fixed-bucket
                 histograms with cheap always-on recording, snapshot and
                 delta semantics, JSON + Prometheus text exporters;
   trace.py    — ``Tracer``/``Trace``: sampled per-request span trees,
                 plus ``latency_breakdown`` (queue-wait / service /
-                hedge-wait percentiles from trace data);
+                hedge-wait percentiles from trace data), and ``stage``:
+                the steps of an RPC, on the profiler's clock and in the
+                sampled trace;
   events.py   — ``EventLog``: structured lifecycle transitions.
 
 ``Telemetry`` bundles the three behind one handle. In the port the
@@ -22,7 +25,7 @@ from repro_torch.obs.events import Event, EventLog
 from repro_torch.obs.registry import (DEFAULT_MS_BUCKETS, Counter, Gauge,
                                       Histogram, MetricsRegistry)
 from repro_torch.obs.trace import (NULL_TRACE, NullTrace, Span, Trace,
-                                   Tracer, latency_breakdown)
+                                   Tracer, latency_breakdown, stage)
 
 # default per-request trace sampling: every 16th request group carries a
 # span tree (0 = off, 1 = always-on)
@@ -31,7 +34,7 @@ DEFAULT_SAMPLE_EVERY = 16
 __all__ = ["Counter", "DEFAULT_MS_BUCKETS", "DEFAULT_SAMPLE_EVERY", "Event",
            "EventLog", "Gauge", "Histogram", "MetricsRegistry", "NULL_TRACE",
            "NullTrace", "Span", "Telemetry", "Trace", "Tracer",
-           "latency_breakdown"]
+           "latency_breakdown", "stage"]
 
 
 class Telemetry:

@@ -1,5 +1,6 @@
 """Per-request tracing: sampled span trees through the serving plane (the
-port's own copy of ``repro/obs/trace.py``).
+port's own copy of ``repro/obs/trace.py``), and the stage spans that the
+engine's layers open inside a request.
 
 A ``Trace`` is one request's span tree: the front-end opens the root at
 dispatch and backdates a ``queue_wait`` child to the request's admission
@@ -7,17 +8,58 @@ time; ``GusEngine.query`` nests ``engine_query`` -> ``flush`` /
 ``catch_up`` / ``route`` -> ``answer_primary`` / ``answer_hedge`` /
 ``answer_failover`` under it; ``MutationPipeline`` and
 ``ShardedGusIndex`` add ``encode`` / ``handoff`` / ``shard_search``
-spans when they run inside a traced request. ``benchmarks/loadgen.py``
-reconstructs the queue-wait / service-time / hedge-wait latency
-breakdown from these trees (``latency_breakdown``).
+spans when they run inside a traced request. ``latency_breakdown``
+reconstructs the queue-wait / service-time / hedge-wait split from these
+trees.
 
 Sampling contract (the hot path must stay fast): ``Tracer.trace()``
 decides per *request group* — ``sample_every=0`` disables tracing
 entirely, ``1`` traces every request, ``N`` every Nth. Unsampled
 requests get the shared ``NULL_TRACE``, whose every method is a no-op,
 so the per-query overhead of a disabled or unsampled tracer is a
-counter increment and an attribute check (``benchmarks/latency.py``
-gates the measured ratio at <= 1.05).
+counter increment and an attribute check.
+
+Stages (``stage(name, **meta)``): the layers below the engine
+(``core/gus.py``, ``core/embedding.py``, ``ann/scann.py``,
+``core/scorer.py``, ``graph/store.py``) mark where each step of an RPC
+runs, named ``<layer>.<step>``, without a tracer handle.
+``Tracer.activate`` publishes a sampled trace to a module slot, and a
+stage opened while it is there is a child span of it. While
+``torch.profiler`` records, a stage is also a ``record_function`` named
+``span:<name>``, with ``|`` and the meta as JSON after it when meta is
+given, so it sits on the profiler's clock beside the device records it
+launched. With neither, ``stage`` makes two checks and returns a shared
+no-op; a meta value that costs something to compute is given as a
+function of no arguments, called only when the stage records. A stage
+never synchronises: it times the host's part of the step, and the device
+records it launched carry their own times in the profiler's trace. The
+serving plane is single-threaded, so one slot serves it. The stages, under
+``answer_*`` in a sampled engine trace:
+
+    gus.neighbors (ids, k)      the neighborhood RPC's root, by id or by
+                                features
+      gus.gather (rows)         query rows (by id), then candidate rows
+      embed.batch (rows)
+        embed.to_device (bytes)
+        embed.buckets           LSH and the int64-emulated hashing
+        embed.weights           IDF, filter, dedup and its sorts
+      index.search (rows, k)
+        index.sketch
+        index.partitions / index.shortlist / index.rescore
+                                one of each per 1,024-row chunk
+        index.to_host           the host waits for the search here
+        index.id_map
+      gus.drop_self (rows)
+      score.pairs (rows)
+      score.to_host
+    gus.mutate (rows)           the mutation RPC
+      mutate.encode             embed.batch inside
+      mutate.apply
+        index.delete (rows) / index.write (rows)
+      mutate.finish             the visibility barrier
+      graph.apply               with a maintained graph
+        graph.push_edges (rows)
+      graph.repair              the repair drain
 
 Clock discipline: every span bound in one trace comes from the tracer's
 clock (``time.perf_counter`` by default). Components that account time
@@ -36,8 +78,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import time
 from collections import deque
+
+import torch
+from torch._C._autograd import _profiler_enabled
 
 from repro_torch.utils.timing import percentiles
 
@@ -175,6 +221,72 @@ class NullTrace:
 NULL_TRACE = NullTrace()
 
 
+# ------------------------------------------------------------------ stages
+
+# the sampled trace that ``Tracer.activate`` published for the stages
+_published: Trace | None = None
+
+
+class _NoStage:
+    """What a stage is while nothing records: one shared no-op."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_STAGE = _NoStage()
+
+
+class _Stage:
+    """A stage while something records: a ``record_function`` when the
+    profiler is on, a child span when a sampled trace is published."""
+
+    __slots__ = ("name", "meta", "trace", "profiled", "_rf", "_span")
+
+    def __init__(self, name: str, meta: dict, trace, profiled: bool):
+        self.name = name
+        self.meta = {k: v() if callable(v) else v for k, v in meta.items()}
+        self.trace, self.profiled = trace, profiled
+        self._rf = self._span = None
+
+    def __enter__(self):
+        if self.profiled:
+            label = "span:" + self.name
+            if self.meta:
+                label += "|" + json.dumps(self.meta)
+            self._rf = torch.profiler.record_function(label)
+            self._rf.__enter__()
+        if self.trace is not None:
+            self._span = self.trace.span(self.name, **self.meta)
+            return self._span.__enter__()
+        return None
+
+    def __exit__(self, *exc):
+        try:
+            if self._span is not None:
+                self._span.__exit__(*exc)
+        finally:
+            if self._rf is not None:
+                self._rf.__exit__(*exc)
+        return False
+
+
+def stage(name: str, **meta):
+    """A context for one step of a request, named ``<layer>.<step>``; its
+    meta values are numbers, or functions that return one (see the
+    module doc). No-op unless the profiler records or a sampled trace is
+    published."""
+    profiled = _profiler_enabled()
+    if _published is None and not profiled:
+        return _NO_STAGE
+    return _Stage(name, meta, _published, profiled)
+
+
 class Tracer:
     """Sampling trace factory + the active-trace context (see module doc).
 
@@ -205,12 +317,17 @@ class Tracer:
     def activate(self, trace):
         """Make ``trace`` the ambient trace: components below this frame
         attach spans via ``span()``/``add_span()`` without threading a
-        handle through every signature."""
+        handle through every signature; a sampled trace is also published
+        to the stages (``stage``)."""
+        global _published
         prev, self.active = self.active, trace
+        prev_published = _published
+        _published = trace if trace is not None and trace.sampled else None
         try:
             yield trace
         finally:
             self.active = prev
+            _published = prev_published
 
     @contextlib.contextmanager
     def span(self, name: str, **meta):
@@ -237,7 +354,7 @@ class Tracer:
                 "sampled": self.sampled, "finished": len(self.finished)}
 
 
-# span names the latency breakdown aggregates (benchmarks/loadgen.py)
+# span names the latency breakdown aggregates
 QUEUE_WAIT = "queue_wait"
 SERVICE_SPANS = ("answer_primary", "answer_failover")
 HEDGE_SPAN = "answer_hedge"

@@ -335,13 +335,21 @@ class GusEngine:
         injected straggler ms; the injected part lands in the span's
         ``extra_ms`` meta, never in its wall-clock bounds). The answer is
         on the host when ``neighbors`` returns, so the measured part
-        covers the device work."""
-        t0 = time.perf_counter()
-        res = member.gus.neighbors(feats, k)
-        t1 = time.perf_counter()
-        extra_ms = self.faults.extra_ms(member.key)
-        self.obs.tracer.add_span(span, t0, t1, member=member.name,
-                                 extra_ms=extra_ms)
+        covers the device work. In a sampled trace the span is open while
+        the member answers, so the member's stages nest under it (and
+        their cost is in the measured part); an unsampled answer opens
+        no span."""
+        tracer = self.obs.tracer
+        if tracer.active is None or not tracer.active.sampled:
+            t0 = time.perf_counter()
+            res = member.gus.neighbors(feats, k)
+            t1 = time.perf_counter()
+            return res, (t1 - t0) * 1e3 + self.faults.extra_ms(member.key)
+        with tracer.span(span, member=member.name) as sp:
+            t0 = time.perf_counter()
+            res = member.gus.neighbors(feats, k)
+            t1 = time.perf_counter()
+            extra_ms = sp.meta["extra_ms"] = self.faults.extra_ms(member.key)
         return res, (t1 - t0) * 1e3 + extra_ms
 
     def _route(self, feats, k):

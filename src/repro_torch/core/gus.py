@@ -95,49 +95,155 @@ def make_index(k_dims: int, cfg: GusConfig, device):
 
 
 class FeatureStore:
-    """Host-side feature store keyed by point id (numpy columns)."""
+    """Host-side feature store keyed by point id: one numpy column per
+    feature key, ``[capacity + 1, *shape]`` in the spec's dtype.
+
+    A live point owns one slot (row) of every column. Capacity grows
+    geometrically and ``drop`` returns slots to a free list. The last row
+    of every column is never written, so slot -1, which stands for an
+    absent id, gathers zeros. Ids map to slots through a dense table
+    indexed by id (-1 absent) while every id the store has taken is
+    non-negative and below ``_DENSE_SPAN`` times the capacity; any other
+    id turns the store to sorted keys searched with ``np.searchsorted``
+    until ``clear``, so the map never grows with the largest id."""
+
+    _DENSE_SPAN = 4
+    _MIN_CAPACITY = 1024
 
     def __init__(self, spec: FeatureSpec):
         self.spec = spec
-        self._rows: dict[int, dict] = {}
+        self._shapes = {k: (shape[1:], dtype) for k, (shape, dtype)
+                        in spec.feature_shapes(1).items()}
+        self.clear()
+
+    @property
+    def _capacity(self) -> int:
+        return len(next(iter(self._cols.values()))) - 1
+
+    @property
+    def dense(self) -> bool:
+        """Whether the dense id table serves lookups (else sorted keys)."""
+        return self._table is not None
 
     def put(self, ids: np.ndarray, features: Mapping[str, np.ndarray]) -> None:
-        for i, pid in enumerate(np.asarray(ids).tolist()):
-            self._rows[pid] = {k: np.asarray(v[i]) for k, v in features.items()}
+        """Store each id's row; an id repeated in ``ids`` keeps its last
+        row, a live id is overwritten in its own slot, and a key the batch
+        lacks reads back as zeros."""
+        unknown = set(features) - set(self._shapes)
+        if unknown:
+            raise ValueError(f"feature keys not in the spec: {sorted(unknown)}")
+        ids = np.asarray(ids, np.int64).reshape(-1)
+        if ids.size == 0:
+            return
+        uniq, first_rev = np.unique(ids[::-1], return_index=True)
+        rows = ids.size - 1 - first_rev
+        slots = self._lookup(uniq)
+        new = slots < 0
+        if new.any():
+            slots[new] = self._take_slots(int(np.count_nonzero(new)))
+            self._map(uniq[new], slots[new])
+        for k, col in self._cols.items():
+            col[slots] = np.asarray(features[k])[rows] if k in features else 0
 
     def drop(self, ids) -> None:
-        for pid in np.asarray(ids).tolist():
-            self._rows.pop(pid, None)
+        ids = np.unique(np.asarray(ids, np.int64).reshape(-1))
+        slots = self._lookup(ids)
+        hit = slots >= 0
+        ids, slots = ids[hit], slots[hit]
+        if not ids.size:
+            return
+        if self._table is not None:
+            self._table[ids] = -1
+        else:
+            pos = np.searchsorted(self._keys, ids)
+            self._keys = np.delete(self._keys, pos)
+            self._key_slots = np.delete(self._key_slots, pos)
+        self._free = np.concatenate([self._free, slots])
 
     def clear(self) -> None:
         """Drop every row (a stale replica re-bootstrapping from a
         snapshot must not keep features the snapshot already dropped)."""
-        self._rows.clear()
+        self._cols = {k: np.zeros((1,) + shape, dtype)
+                      for k, (shape, dtype) in self._shapes.items()}
+        self._top = 0                       # slots ever handed out
+        self._free = np.empty(0, np.int64)
+        self._table = np.full(1, -1, np.int64)  # id -> slot, then a -1
+        self._keys = self._key_slots = None     # the sparse map, sorted
 
     def ids(self) -> np.ndarray:
         """Live point ids, ascending."""
-        return np.asarray(sorted(self._rows), np.int64)
+        if self._table is not None:
+            return np.flatnonzero(self._table >= 0).astype(np.int64)
+        return self._keys.copy()
 
     def gather(self, ids: np.ndarray) -> dict:
         """Batch features for ids (missing ids get zeros)."""
         ids = np.asarray(ids)
-        with stage("gus.gather", rows=int(ids.size)):
-            proto = self.spec.feature_shapes(1)
-            out = {k: np.zeros((ids.size,) + shape[1:], dtype)
-                   for k, (shape, dtype) in proto.items()}
-            for j, pid in enumerate(ids.reshape(-1).tolist()):
-                row = self._rows.get(pid)
-                if row is not None:
-                    for k, v in row.items():
-                        out[k][j] = v
-            return {k: v.reshape(ids.shape + v.shape[1:])
-                    for k, v in out.items()}
+        flat = ids.reshape(-1).astype(np.int64, copy=False)
+        with stage("gus.gather", rows=int(ids.size),
+                   missing=lambda: int(np.count_nonzero(
+                       self._lookup(flat) < 0)),
+                   dense=lambda: self.dense):
+            slots = self._lookup(flat)
+            return {k: col.take(slots, axis=0).reshape(ids.shape
+                                                       + col.shape[1:])
+                    for k, col in self._cols.items()}
 
     def __len__(self):
-        return len(self._rows)
+        return self._top - self._free.size
 
     def __contains__(self, pid) -> bool:
-        return int(pid) in self._rows
+        return bool(self._lookup(np.asarray([int(pid)], np.int64))[0] >= 0)
+
+    def _lookup(self, ids: np.ndarray) -> np.ndarray:
+        """Slots of int64 ids, -1 where absent."""
+        if self._table is not None:
+            # ids outside [0, L) land on the table's trailing -1
+            return self._table[np.clip(ids, -1, self._table.size - 1)]
+        if not self._keys.size:
+            return np.full(ids.shape, -1, np.int64)
+        pos = np.minimum(np.searchsorted(self._keys, ids), self._keys.size - 1)
+        return np.where(self._keys[pos] == ids, self._key_slots[pos], -1)
+
+    def _take_slots(self, n: int) -> np.ndarray:
+        """``n`` free slots: from the free list first, then fresh ones."""
+        reuse = min(n, self._free.size)
+        got = self._free[self._free.size - reuse:]
+        self._free = self._free[:self._free.size - reuse]
+        fresh = n - reuse
+        if fresh:
+            top = self._top + fresh
+            if top > self._capacity:
+                self._grow(max(top, 2 * self._capacity, self._MIN_CAPACITY))
+            got = np.concatenate([got, np.arange(self._top, top)])
+            self._top = top
+        return got
+
+    def _grow(self, capacity: int) -> None:
+        for k, col in self._cols.items():
+            grown = np.zeros((capacity + 1,) + col.shape[1:], col.dtype)
+            grown[:self._top] = col[:self._top]
+            self._cols[k] = grown
+
+    def _map(self, ids: np.ndarray, slots: np.ndarray) -> None:
+        """Enter new ids (ascending, absent) at their slots."""
+        if self._table is not None:
+            span = self._DENSE_SPAN * max(self._capacity, self._MIN_CAPACITY)
+            if ids[0] >= 0 and ids[-1] < span:
+                n = self._table.size - 1
+                if ids[-1] >= n:
+                    table = np.full(min(max(int(ids[-1]) + 1, 2 * n), span)
+                                    + 1, -1, np.int64)
+                    table[:n] = self._table[:n]
+                    self._table = table
+                self._table[ids] = slots
+                return
+            live = np.flatnonzero(self._table >= 0)
+            self._keys, self._key_slots = live, self._table[live]
+            self._table = None
+        pos = np.searchsorted(self._keys, ids)
+        self._keys = np.insert(self._keys, pos, ids)
+        self._key_slots = np.insert(self._key_slots, pos, slots)
 
     # --------------------------------------------------------- persistence
 
@@ -496,13 +602,15 @@ class DynamicGUS:
 
 
 def _drop_self(ids, dists, self_ids, k):
-    """Remove each query's own id from its result row, then trim to k."""
+    """Remove each query's own id from its result row (every occurrence),
+    keep the rest in order, then trim to k; short rows pad with -1 / inf."""
     with stage("gus.drop_self", rows=int(ids.shape[0])):
         out_ids = np.full((ids.shape[0], k), -1, ids.dtype)
         out_d = np.full((ids.shape[0], k), np.inf, dists.dtype)
-        for r in range(ids.shape[0]):
-            keep = ids[r] != self_ids[r]
-            sel_ids, sel_d = ids[r][keep][:k], dists[r][keep][:k]
-            out_ids[r, :sel_ids.size] = sel_ids
-            out_d[r, :sel_d.size] = sel_d
+        keep = ids != np.asarray(self_ids).reshape(-1, 1)
+        col = np.cumsum(keep, axis=1) - 1      # each kept entry's column
+        keep &= col < k
+        at = np.nonzero(keep)[0], col[keep]
+        out_ids[at] = ids[keep]
+        out_d[at] = dists[keep]
         return out_ids, out_d

@@ -38,7 +38,10 @@ serving plane is single-threaded, so one slot serves it. The stages, under
 
     gus.neighbors (ids, k)      the neighborhood RPC's root, by id or by
                                 features
-      gus.gather (rows)         query rows (by id), then candidate rows
+      gus.gather (rows, missing, dense)
+                                query rows (by id), then candidate rows;
+                                rows not in the store, and whether the
+                                dense id table served the lookup
       embed.batch (rows)
         embed.to_device (bytes)
         embed.buckets           LSH and the int64-emulated hashing

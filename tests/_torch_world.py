@@ -167,12 +167,12 @@ def index_map(gus) -> dict:
 def assert_same_state(a, b, graph=True):
     """Two port engines hold the same state, bit for bit: store, index
     arrays and id maps, a probe of the index path, graph rows, CC."""
-    assert set(a.store._rows) == set(b.store._rows)
+    assert set(a.store.ids().tolist()) == set(b.store.ids().tolist())
     assert index_map(a) == index_map(b)
     for name, arr in index_arrays(a).items():
         np.testing.assert_array_equal(arr, index_arrays(b)[name],
                                       err_msg=name)
-    qids = np.asarray(sorted(a.store._rows))[:24]
+    qids = a.store.ids()[:24]
     r1 = a._index_neighbors_of_ids(qids, 5)
     r2 = b._index_neighbors_of_ids(qids, 5)
     for f in ("ids", "weights", "distances"):

@@ -107,7 +107,7 @@ def test_snapshot_restore_matches_reference(world, plane):
     _host_only(conv)
     t_ref.restore_state(conv)
     # the port's restore reproduces the engine it snapshotted
-    assert set(t_own.store._rows) == set(tg.store._rows)
+    assert set(t_own.store.ids().tolist()) == set(tg.store.ids().tolist())
     if plane == "graph":
         np.testing.assert_array_equal(t_own.graph.nbr_slots.numpy(),
                                       tg.graph.nbr_slots.numpy())
@@ -204,9 +204,9 @@ def test_scann_restore_repeats(world):
     a.restore_state(snap)
     b.restore_state(snap)
     assert_same_state(a, b)
-    assert set(a.store._rows) == set(tg.store._rows)
+    assert set(a.store.ids().tolist()) == set(tg.store.ids().tolist())
     np.testing.assert_array_equal(a.graph.nbr_slots.numpy(),
                                   tg.graph.nbr_slots.numpy())
-    qids = np.asarray(sorted(tg.store._rows))[:8]
+    qids = tg.store.ids()[:8]
     np.testing.assert_array_equal(a.neighbors_of_ids(qids, k=4).ids,
                                   tg.neighbors_of_ids(qids, k=4).ids)

@@ -138,7 +138,7 @@ def test_window_close_reasons_and_answers_match_reference(world, backend):
         assert "updates_live" in reasons
     for key in ("submitted", "windows", "ticks"):
         assert tpipe.describe()[key] == jpipe.describe()[key], key
-    assert set(tg.store._rows) == set(jg.store._rows)
+    assert set(tg.store.ids().tolist()) == set(jg.store._rows)
     if backend == "scann":
         assert tg.index.slot_of == jg.index.slot_of
     qids = np.asarray(sorted(jg.store._rows))[:16]

@@ -84,8 +84,8 @@ def _same_answers(a, b):
     """Two engines over one corpus answer alike. A restore re-bootstraps
     (slots in id order, not in history's), so ids may swap only inside a
     tie at the cut: ``_assert_same_neighbors``, on the index path."""
-    assert set(a.store._rows) == set(b.store._rows)
-    qids = np.asarray(sorted(a.store._rows))[::7][:24]
+    assert set(a.store.ids().tolist()) == set(b.store.ids().tolist())
+    qids = a.store.ids()[::7][:24]
     _assert_same_neighbors(a._index_neighbors_of_ids(qids, 5),
                            b._index_neighbors_of_ids(qids, 5), 5)
 

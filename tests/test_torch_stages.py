@@ -16,11 +16,11 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch import obs
 from repro_torch.ann.scann import ScannConfig
 from repro_torch.core.buckets import BucketConfig
-from repro_torch.core.gus import DynamicGUS, GusConfig
+from repro_torch.core.gus import DynamicGUS, FeatureStore, GusConfig
 from repro_torch.core.scorer import scorer_init
 from repro_torch.core.types import MUTATION_DELETE
 from repro_torch.data.stream import MutationStream, StreamConfig
-from repro_torch.data.synthetic import OGB_ARXIV_LIKE
+from repro_torch.data.synthetic import OGB_ARXIV_LIKE, make_dataset
 from repro_torch.graph.store import GraphConfig
 from repro_torch.serve.engine import GusEngine
 
@@ -103,7 +103,7 @@ def test_profiled_rpc_emits_every_stage_inside_its_root(world, rpc):
     read path once (the gather twice by id: the query rows and the
     candidates), each inside the one ``gus.neighbors``, every meta JSON."""
     gus, stream = world
-    ids = np.asarray(sorted(gus.store._rows))[:7]
+    ids = gus.store.ids()[:7]
     if rpc == "neighbors_of_ids":
         _, stages = _profiled_stages(lambda: gus.neighbors_of_ids(ids, 5))
         want, gathers = READ_STAGES, 2
@@ -126,6 +126,11 @@ def test_profiled_rpc_emits_every_stage_inside_its_root(world, rpc):
     assert metas["score.pairs"]["rows"] == 7 * 5
     assert metas["embed.to_device"]["bytes"] > 0
     assert metas["embed.buckets"] is None
+    # the store's counters: every row found, through the dense id table
+    gather_metas = [m for name, _, _, m in stages if name == "gus.gather"]
+    assert gather_metas[-1] == {"rows": 7 * 5, "missing": 0, "dense": True}
+    if gathers == 2:
+        assert gather_metas[0] == {"rows": 7, "missing": 0, "dense": True}
 
 
 def test_write_path_emits_its_stages():
@@ -154,7 +159,7 @@ def test_off_path_enters_no_record_function(world, monkeypatch):
         return contextlib.nullcontext()
     monkeypatch.setattr(torch.profiler, "record_function", counting)
     assert obs.stage("gus.gather", rows=3) is obs.stage("index.sketch")
-    gus.neighbors_of_ids(np.asarray(sorted(gus.store._rows))[:4], 5)
+    gus.neighbors_of_ids(gus.store.ids()[:4], 5)
     assert calls == []
 
 
@@ -179,7 +184,7 @@ def test_answers_are_bitwise_the_same_with_stages_on_and_off():
                                   _bits(on.graph.nbr_w.numpy()))
     np.testing.assert_array_equal(off.graph.nbr_slots.numpy(),
                                   on.graph.nbr_slots.numpy())
-    ids = np.asarray(sorted(off.store._rows))[:9]
+    ids = off.store.ids()[:9]
     # k above the graph's k: the index path, not the graph rows
     want = off.neighbors_of_ids(ids, 6)
     got, _ = _profiled_stages(lambda: on.neighbors_of_ids(ids, 6))
@@ -229,6 +234,23 @@ def test_stage_names_are_apart_from_the_benchmark_spans():
     for name in names:
         layer, _, step = name.partition(".")
         assert layer in LAYERS and re.fullmatch(r"[a-z_]+", step), name
+
+
+def test_gather_meta_counts_missing_rows_and_the_id_map():
+    """``gus.gather``'s ``missing`` counts the rows not in the store (-1
+    padding included) and ``dense`` says which id map served them: the
+    dense table until an id near 2**40 turns the store to sorted keys."""
+    store = FeatureStore(DATA.spec)
+    feats = {k: v[:3] for k, v in make_dataset(DATA)[1].items()}
+    store.put(np.asarray([0, 1, 2]), feats)
+    probe = np.asarray([[2, -1], [10 ** 9, 0]])
+    _, stages = _profiled_stages(lambda: store.gather(probe))
+    assert [m for *_, m in stages] == [{"rows": 4, "missing": 2,
+                                        "dense": True}]
+    store.put(np.asarray([2 ** 40]), {k: v[:1] for k, v in feats.items()})
+    _, stages = _profiled_stages(lambda: store.gather(probe))
+    assert [m for *_, m in stages] == [{"rows": 4, "missing": 2,
+                                        "dense": False}]
 
 
 def test_meta_functions_run_only_when_the_stage_records():

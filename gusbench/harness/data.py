@@ -5,8 +5,10 @@ move it.
 
 ``make_dataset`` and ``MutationStream`` draw exactly what the program's
 copies draw for the same configuration and seed (``tests/test_gb_data.py``
-holds them equal). One departure: ``MutationStream`` takes the corpus it
-streams over instead of calling ``make_dataset`` a second time.
+holds them equal), with two departures: ``make_dataset`` draws set modes
+by whole arrays (the program's distribution, not its stream), and
+``MutationStream`` takes the corpus it streams over instead of calling
+``make_dataset`` a second time.
 """
 from __future__ import annotations
 
@@ -48,7 +50,11 @@ class CorpusConfig:
 
 def make_dataset(cfg: CorpusConfig):
     """Returns (ids int64 [N], features dict, cluster int32 [N]): the draws
-    of ``repro_torch.data.synthetic.make_dataset``, in its order."""
+    of ``repro_torch.data.synthetic.make_dataset``, in its order, for the
+    clusters and the dense and scalar modes. Set modes are the benchmark's
+    own draw (``_draw_set``): the program's distribution, drawn by whole
+    arrays instead of row by row, so from the same seed a set mode's items,
+    and any scalar mode drawn after one, differ from the program's."""
     rng = np.random.default_rng(cfg.seed)
     n, c = cfg.n_points, cfg.n_clusters
     if cfg.zipf_clusters:
@@ -65,21 +71,30 @@ def make_dataset(cfg: CorpusConfig):
         x = centers[cluster] + sigma * rng.normal(size=(n, dim))
         features[f"dense:{name}"] = x.astype(np.float32)
     for name, cap in sorted(cfg.spec.sets):
-        vocab = cfg.set_vocab_per_cluster
-        items = np.full((n, cap), PAD_ITEM, np.int32)
-        counts = rng.binomial(cap, cfg.set_fill, size=n)
-        for i in range(n):
-            k = max(int(counts[i]), 1)
-            pool = cluster[i] * vocab + rng.integers(0, vocab, k)
-            noise = rng.random(k) < cfg.set_noise
-            pool[noise] = rng.integers(0, c * vocab, noise.sum())
-            items[i, :k] = pool
-        features[f"set:{name}"] = items
+        features[f"set:{name}"] = _draw_set(rng, cluster, cap, cfg)
     for name in sorted(cfg.spec.scalars):
         base = rng.uniform(0, 25, size=c)
         x = base[cluster] + cfg.scalar_spread * rng.normal(size=n)
         features[f"scalar:{name}"] = x.astype(np.float32)
     return np.arange(n, dtype=np.int64), features, cluster
+
+
+def _draw_set(rng: np.random.Generator, cluster: np.ndarray, cap: int,
+              cfg: CorpusConfig) -> np.ndarray:
+    """One set mode's items int32 [N, cap], by whole arrays: each row holds
+    max(binomial(cap, set_fill), 1) items, then ``PAD_ITEM``; an item is
+    drawn uniformly from the row's cluster pool of
+    ``set_vocab_per_cluster`` ids, and with probability ``set_noise``
+    replaced by one drawn uniformly from all ``n_clusters`` pools."""
+    n, vocab = cluster.size, cfg.set_vocab_per_cluster
+    counts = np.maximum(rng.binomial(cap, cfg.set_fill, size=n), 1)
+    items = (cluster[:, None] * vocab
+             + rng.integers(0, vocab, (n, cap), dtype=np.int32))
+    noise = rng.random((n, cap), dtype=np.float32) < cfg.set_noise
+    items[noise] = rng.integers(0, cfg.n_clusters * vocab, int(noise.sum()),
+                                dtype=np.int32)
+    items[np.arange(cap)[None, :] >= counts[:, None]] = PAD_ITEM
+    return items
 
 
 def labeled_pair_rows(cluster: np.ndarray, n_pairs: int, seed: int):

@@ -57,6 +57,17 @@ def forbidden_modules() -> list:
                   & set(FORBIDDEN))
 
 
+def lsh_planes(spec, buckets: dict) -> dict:
+    """The SimHash planes of a run's LSH, as ``buckets["seed"]`` draws
+    them: one ``torch.Generator`` on the CPU, the dense modes in sorted
+    order, ``[tables, dim, bits]`` standard normals for each in turn."""
+    gen = torch.Generator().manual_seed(int(buckets["seed"]))
+    return {name: torch.randn((buckets["dense_tables"], dim,
+                               buckets["dense_bits"]), generator=gen,
+                              dtype=torch.float32)
+            for name, dim in sorted(spec.dense)}
+
+
 def merge(base: dict, over: dict | None) -> dict:
     out = dict(base)
     for k, v in (over or {}).items():
@@ -184,10 +195,14 @@ class Run:
         cfg, traffic, seeds, ref = self.cfg, self.traffic, self.seeds, self.ref
         co = cfg["corpus"]
         self.spec = spec = Spec.from_json(co["spec"])
+        # a set mode's item pool per cluster, where the configuration
+        # states one (ogbn-products' schema draws from 40)
+        sets = ({"set_vocab_per_cluster": co["set_vocab_per_cluster"]}
+                if "set_vocab_per_cluster" in co else {})
         ids, self.feats, cluster = make_dataset(CorpusConfig(
             n_points=co["n_points"], n_clusters=co["n_clusters"], spec=spec,
             dense_noise=co["dense_noise"], scalar_spread=co["scalar_spread"],
-            zipf_clusters=co["zipf_clusters"], seed=seeds["corpus"]))
+            zipf_clusters=co["zipf_clusters"], seed=seeds["corpus"], **sets))
         sc = cfg["scorer"]
         pa, pb, labels = labeled_pair_rows(
             cluster, min(4 * co["n_points"], sc["train_pairs"]),
@@ -319,14 +334,14 @@ class Run:
         if self.dev.type == "cuda":
             torch.cuda.empty_cache()
         cfg, ref, spec = self.cfg, self.ref, self.spec
-        planes = {name: ref.hyperplanes(dim, cfg["buckets"]["dense_tables"],
-                                        cfg["buckets"]["dense_bits"],
-                                        self.seeds["lsh"])
-                  for name, dim in spec.dense}
+        # the run's LSH: the configuration's shape under the seed that the
+        # system builder was given
+        buckets = {**cfg["buckets"], "seed": self.seeds["lsh"]}
+        planes = lsh_planes(spec, buckets)
         versions = {k: np.concatenate([v] + [r.batch.features[k]
                                              for r in self.plan.batches])
                     for k, v in self.feats.items()}
-        judge = Judge(ref, spec, cfg["buckets"], planes, self.params,
+        judge = Judge(ref, spec, buckets, planes, self.params,
                       versions, self.boot_ids, self.dev,
                       control=control or both)
         queries = [i for i, r in enumerate(self.log)

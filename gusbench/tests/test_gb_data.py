@@ -72,3 +72,42 @@ def test_the_stream_names_an_id_twice_in_some_batches():
         up = b.ids[b.kinds != data.MUTATION_DELETE]
         twice += np.unique(up).size < up.size
     assert 0 < twice < 400
+
+
+PRODUCTS = dict(n_points=20000, n_clusters=47,
+                spec=data.Spec(dense=(("bow_pca", 100),),
+                               sets=(("copurchase", 16),)),
+                dense_noise=0.4, set_vocab_per_cluster=40, seed=7)
+
+
+def _set_stats(items, cluster, vocab):
+    present = items != data.PAD_ITEM
+    outside = present & (items // vocab != cluster[:, None])
+    return present.sum(1).mean(), outside.sum() / present.sum()
+
+
+def test_set_draw_by_whole_arrays():
+    """The benchmark's set draw against the program's row-by-row one at
+    20,000 rows of the products schema (about 224,000 items). Margins:
+    the mean fill within 0.1 items (the difference of two means of 20,000
+    rows of sd 1.83 has sd 0.018) and the share outside the row's pool
+    within 0.006 (sd of the difference 0.0011); that share is
+    ``set_noise`` x (1 - 1 / n_clusters) = 0.1468 in expectation, since a
+    noise item lands in its own pool once in 47."""
+    _, feats, cluster = data.make_dataset(data.CorpusConfig(**PRODUCTS))
+    items = feats["set:copurchase"]
+    assert items.shape == (20000, 16) and items.dtype == np.int32
+    present = items != data.PAD_ITEM
+    # at least one item a row, PAD_ITEM only after the row's items
+    assert present[:, 0].all()
+    assert not np.any(~present[:, :-1] & present[:, 1:])
+    _, pfeats, pcluster = p_syn.make_dataset(dataclasses.replace(
+        p_syn.OGB_PRODUCTS_LIKE, n_points=20000, seed=7))
+    fill, noise = _set_stats(items, cluster, 40)
+    pfill, pnoise = _set_stats(pfeats["set:copurchase"], pcluster, 40)
+    assert abs(fill - pfill) < 0.1, (fill, pfill)
+    assert abs(noise - pnoise) < 0.006, (noise, pnoise)
+    assert 0.1 < noise <= 0.15
+    # the dense mode, drawn before the sets, is still the program's
+    np.testing.assert_array_equal(feats["dense:bow_pca"],
+                                  pfeats["dense:bow_pca"])

@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.ann.partition import sample_rows, segment_sum
+from repro_torch.ann.partition import (_blocked_argmin, sample_rows,
+                                        segment_sum)
 
 
 def split_subspaces(x: torch.Tensor, m: int) -> torch.Tensor:
@@ -73,12 +74,18 @@ def train_codebooks(residuals: torch.Tensor, m: int, n_centers: int = 256,
 
 
 def encode(residuals: torch.Tensor, books: torch.Tensor) -> torch.Tensor:
-    """Assign codes u8 [N, M] (nearest center per subspace, L2)."""
+    """Assign codes u8 [N, M] (nearest center per subspace, L2), the
+    [N, M, C] cost a block of rows at a time."""
     sub = split_subspaces(residuals, books.shape[0])                  # [N, M, ds]
-    d2 = ((sub * sub).sum(-1)[:, :, None]
-          - 2 * torch.einsum("nmd,mcd->nmc", sub, books)
-          + (books * books).sum(-1)[None, :, :])
-    return d2.argmin(-1).to(torch.uint8)
+
+    def nearest(rows):
+        sb = sub[rows]
+        d2 = ((sb * sb).sum(-1)[:, :, None]
+              - 2 * torch.einsum("nmd,mcd->nmc", sb, books)
+              + (books * books).sum(-1)[None, :, :])
+        return d2.argmin(-1)
+    return _blocked_argmin(sub.shape[0], books.shape[0] * books.shape[1],
+                           nearest).to(torch.uint8)
 
 
 def query_lut(q: torch.Tensor, books: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,7 @@ reference's only where the projection is within rounding of zero.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import zlib
 from typing import Mapping
@@ -19,6 +20,7 @@ import torch
 
 from repro_torch.core import hashing
 from repro_torch.core.types import FeatureSpec, PAD_ITEM
+from repro_torch.obs import stage
 from repro_torch.utils.device import resolve
 
 
@@ -61,7 +63,8 @@ def generate_buckets(features: Mapping[str, torch.Tensor], spec: FeatureSpec,
 
     Returns (bucket_ids int64 [B, k_max] of uint32 values, valid bool
     [B, k_max]). Invalid slots (MinHash of an empty set) carry arbitrary
-    IDs and must be masked by the caller.
+    IDs and must be masked by the caller. The set tables run in the stage
+    ``embed.minhash``, which a schema without set modes does not open.
     """
     ids, valid = [], []
 
@@ -79,17 +82,20 @@ def generate_buckets(features: Mapping[str, torch.Tensor], spec: FeatureSpec,
             valid.append(torch.ones(x.shape[0], dtype=torch.bool,
                                     device=x.device))
 
-    for name in sorted(spec.sets):
-        items = features[f"set:{name}"]                  # int32 [B, cap]
-        present = items != PAD_ITEM
-        any_item = present.any(-1)
-        tag = _mode_tag("set", name)
-        for t in range(cfg.set_tables):
-            hashed = hashing.uhash(cfg.seed * 131 + t, items)
-            hashed = torch.where(present, hashed, hashing.M32)
-            minh = hashed.amin(-1)                       # [B]
-            ids.append(hashing.hash_fields(tag, t, minh))
-            valid.append(any_item)
+    with (stage("embed.minhash", tables=len(spec.sets) * cfg.set_tables,
+                cap=max(spec.sets.values())) if spec.sets
+          else contextlib.nullcontext()):
+        for name in sorted(spec.sets):
+            items = features[f"set:{name}"]              # int32 [B, cap]
+            present = items != PAD_ITEM
+            any_item = present.any(-1)
+            tag = _mode_tag("set", name)
+            for t in range(cfg.set_tables):
+                hashed = hashing.uhash(cfg.seed * 131 + t, items)
+                hashed = torch.where(present, hashed, hashing.M32)
+                minh = hashed.amin(-1)                   # [B]
+                ids.append(hashing.hash_fields(tag, t, minh))
+                valid.append(any_item)
 
     for name in sorted(spec.scalars):
         x = features[f"scalar:{name}"]                   # f32 [B]

@@ -20,12 +20,15 @@ from repro_torch.core.gus import DynamicGUS, FeatureStore, GusConfig
 from repro_torch.core.scorer import scorer_init
 from repro_torch.core.types import MUTATION_DELETE
 from repro_torch.data.stream import MutationStream, StreamConfig
-from repro_torch.data.synthetic import OGB_ARXIV_LIKE, make_dataset
+from repro_torch.data.synthetic import (OGB_ARXIV_LIKE, OGB_PRODUCTS_LIKE,
+                                        make_dataset)
 from repro_torch.graph.store import GraphConfig
 from repro_torch.serve.engine import GusEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 DATA = dataclasses.replace(OGB_ARXIV_LIKE, n_points=300, n_clusters=6)
+# ogbn-products' schema: a dense mode and a 16-slot set mode, no scalar
+PRODUCTS = dataclasses.replace(OGB_PRODUCTS_LIKE, n_points=300, n_clusters=6)
 SCANN = ScannConfig(d_proj=32, n_partitions=16, nprobe=4, reorder=64,
                     kmeans_iters=3, pq_iters=2)
 BUCKETS = BucketConfig(dense_tables=8, dense_bits=10, scalar_widths=(2.0,))
@@ -53,13 +56,13 @@ def _one_torch_thread():
     torch.set_num_threads(prev)
 
 
-def _gus(graph: bool = False) -> DynamicGUS:
+def _gus(graph: bool = False, data=DATA) -> DynamicGUS:
     """A tiny engine on the CPU, bootstrapped from the first half of the
     corpus (the same state on every call)."""
-    stream = MutationStream(DATA, StreamConfig(batch_size=16, seed=5), 0.5)
+    stream = MutationStream(data, StreamConfig(batch_size=16, seed=5), 0.5)
     cfg = GusConfig(scann_nn=5, scann=SCANN,
                     graph=GraphConfig(k=4, capacity=512) if graph else None)
-    gus = DynamicGUS(DATA.spec, BUCKETS, scorer_init(0, DATA.spec,
+    gus = DynamicGUS(data.spec, BUCKETS, scorer_init(0, data.spec,
                                                       device="cpu"),
                      cfg, device="cpu")
     gus.bootstrap(*stream.bootstrap())
@@ -83,6 +86,13 @@ def _profiled_stages(fn) -> tuple:
             stages.append((base, e.time_range.start, e.time_range.end,
                            json.loads(meta) if sep else None))
     return out, stages
+
+
+def _leaves(stages: list) -> list:
+    """The stages that hold no other stage."""
+    return [a for i, a in enumerate(stages)
+            if not any(j != i and a[1] <= b[1] and b[2] <= a[2]
+                       for j, b in enumerate(stages))]
 
 
 def _bits(a) -> np.ndarray:
@@ -131,6 +141,50 @@ def test_profiled_rpc_emits_every_stage_inside_its_root(world, rpc):
     assert gather_metas[-1] == {"rows": 7 * 5, "missing": 0, "dense": True}
     if gathers == 2:
         assert gather_metas[0] == {"rows": 7, "missing": 0, "dense": True}
+
+
+# the leaf stages of a neighborhood RPC by id on a schema without sets
+READ_LEAVES = {
+    "gus.gather", "embed.to_device", "embed.buckets", "embed.weights",
+    "index.sketch", "index.partitions", "index.shortlist", "index.rescore",
+    "index.to_host", "index.id_map", "gus.drop_self", "score.pairs",
+    "score.to_host"}
+
+
+@pytest.mark.parametrize("schema", ["products", "arxiv"])
+def test_minhash_stage_opens_only_with_a_set_mode(world, schema):
+    """A schema with a set mode runs its MinHash tables in a leaf stage
+    ``embed.minhash`` inside ``embed.buckets``: an ``embed.`` leaf, so
+    the ops it launches count among the embedding's (``launches_embed``
+    gives a record to the leaf that last opened before it). Without sets
+    no such stage opens and the leaves are the ones above."""
+    gus, _ = _gus(data=PRODUCTS) if schema == "products" else world
+    ids = gus.store.ids()[:7]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        gus.neighbors_of_ids(ids, 5)
+    stages, ops = [], []
+    for e in prof.events():
+        if e.name.startswith("span:"):
+            base, sep, meta = e.name[len("span:"):].partition("|")
+            stages.append((base, e.time_range.start, e.time_range.end,
+                           json.loads(meta) if sep else None))
+        elif e.name.startswith("aten::"):
+            ops.append(e.time_range.start)
+    leaves = sorted(_leaves(stages), key=lambda x: x[1])
+    if schema == "arxiv":
+        assert {s[0] for s in stages} == READ_STAGES
+        assert {s[0] for s in leaves} == READ_LEAVES
+        return
+    assert {s[0] for s in stages} == READ_STAGES | {"embed.minhash"}
+    assert {s[0] for s in leaves} == READ_LEAVES - {"embed.buckets"} \
+        | {"embed.minhash"}
+    (mh,) = [s for s in stages if s[0] == "embed.minhash"]
+    (bk,) = [s for s in stages if s[0] == "embed.buckets"]
+    assert bk[1] <= mh[1] <= mh[2] <= bk[2]
+    assert mh[3] == {"tables": BUCKETS.set_tables, "cap": 16}
+    owner = [next((n for n, s, _, _ in reversed(leaves) if s <= t), None)
+             for t in ops]
+    assert owner.count("embed.minhash") > 0
 
 
 def test_write_path_emits_its_stages():

@@ -83,7 +83,10 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    the profiled calls whose device records came back whole; fused_query,
    sparse_rescore_topk and pair_score also at the graph's shapes and the
    products-multimodal RPC's; the top-k above k = 64 against the stable
-   sort, with the route ``ops.topk_select`` takes there). Phase 5m
+   sort, with the route ``ops.topk_select`` takes there; the bucket
+   columns, ``simhash_scalar_columns`` on arxiv's schema and
+   ``minhash_columns`` on products', bitwise against their plain versions
+   on the card at 16, 1,024 and 1,469,417 rows, and timed). Phase 5m
    records the shape of every two-stage retrieval and brute search it
    makes, and phase 5 checks sparse_dot_batched, pair_score, the masked
    sparse_dot and topk_select at each of them; phase 6 records the shape
@@ -830,6 +833,67 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
                          check_pairs)
     report.update(check_sharded_shapes(torch, rng, on_card, shapes,
                                        check_rescore, rescore_row, pair_row))
+    report.update(check_buckets(torch, dev))
+    return report
+
+
+# the bucket columns' rows: an RPC's 16 ids, a bulk RPC's 1,024 and the
+# products bootstrap's 1,469,417 (a whole-corpus embedding)
+BUCKET_ROWS = (16, 1024, 1_469_417)
+
+
+def check_buckets(torch, dev, rows=BUCKET_ROWS) -> dict:
+    """Phase 5's bucket columns: ``simhash_scalar_columns`` on arxiv's
+    schema (one dense mode, one scalar) and ``minhash_columns`` on
+    products' (a 16-slot set), ``BucketConfig(8, 10, 6, (2.0,))``, at each
+    of ``rows``, bitwise against their plain versions run on the card (the
+    int64-emulated hashing the kernels replaced), timed beside them, with
+    launches per call; bytes counted once (inputs read, 8 id + 1 valid
+    bytes written a column)."""
+    from repro_torch.core.buckets import BucketConfig
+    from repro_torch.data.synthetic import OGB_ARXIV_LIKE, OGB_PRODUCTS_LIKE
+    from repro_torch.kernels import buckets, cases
+
+    cfg = BucketConfig(8, 10, 6, (2.0,))
+    rng = np.random.default_rng(5)
+    report = {}
+    for name, spec in (("simhash_scalar_columns", OGB_ARXIV_LIKE.spec),
+                       ("minhash_columns", OGB_PRODUCTS_LIKE.spec)):
+        kernel = getattr(buckets, name)
+        plain = getattr(buckets, name + "_plain")
+        for b in rows:
+            inputs = {k: [torch.as_tensor(a).to(dev) for a in v] for k, v in
+                      cases.bucket_inputs(rng, spec, cfg, b).items()}
+            args = ((inputs["sets"],) if name == "minhash_columns" else
+                    (inputs["projections"], inputs["scalars"]))
+            outs = [(torch.full((b, cfg.k_max(spec)), -7, dtype=torch.int64,
+                                device=dev),
+                     torch.zeros((b, cfg.k_max(spec)), dtype=torch.bool,
+                                 device=dev)) for _ in range(2)]
+            before = kernel.launches
+            kernel(*args, spec, cfg, *outs[0])
+            launches = kernel.launches - before
+            plain(*args, spec, cfg, *outs[1])
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(*outs)):
+                raise AssertionError(f"{name} differs from its plain version "
+                                     f"at B={b}")
+            print(f"[kernels] {name} B={b}: bitwise equal")
+            cols = (len(spec.sets) * cfg.set_tables
+                    if name == "minhash_columns" else
+                    len(spec.dense) * cfg.dense_tables
+                    + len(spec.scalars) * len(cfg.scalar_widths))
+            read = sum(t.numel() * t.element_size() for group in args
+                       for t in group)
+            bound, by = _bound_ms(read + b * cols * 9, 0)
+            key = name if b == rows[0] else f"{name} B={b}"
+            report[key] = dict(
+                shape=f"B={b} columns={cols}",
+                max_abs_err=0.0,
+                **_timed(torch, lambda: kernel(*args, spec, cfg, *outs[0]),
+                         lambda: plain(*args, spec, cfg, *outs[1])),
+                bound_ms=bound, bound_by=by, launches=launches)
+            print(f"[kernels] {key}: " + json.dumps(report[key]))
     return report
 
 
@@ -1058,7 +1122,8 @@ def run_main_path(torch, n_points: int, dev) -> tuple[dict, dict]:
     print("[main] " + json.dumps(out))
     profile_rpcs(torch, gus, stream)
     _require_launched(counts, ("fused_query", "sparse_rescore_topk",
-                               "sparse_dot", "topk_select", "pair_score"),
+                               "sparse_dot", "topk_select", "pair_score",
+                               "simhash_scalar_columns"),
                       "the main path")
     if not same_rate > 0.7:
         raise AssertionError(f"same-cluster rate {same_rate} <= 0.7")
@@ -2233,7 +2298,8 @@ def run_multimodal_path(torch, n_points: int, dev) -> tuple[dict, dict]:
           + "; launches " + json.dumps(counts))
     _require_launched(counts, ("sparse_dot_batched", "pair_score",
                                "fused_query", "sparse_rescore_topk",
-                               "sparse_dot", "topk_select"),
+                               "sparse_dot", "topk_select",
+                               "simhash_scalar_columns", "minhash_columns"),
                       "the multi-modal path", forbidden=("scorer_mlp",))
     if not flag["ratio"] >= torch_time_to_flag.RATIO_GATE:
         raise AssertionError(f"time-to-flag ratio {flag['ratio']} < "
@@ -3621,6 +3687,12 @@ SOURCES = {  # kernel -> (CUDA source, TPU kernel it replaces, path)
                          "src/repro/kernels/pq_score.py:37", "configs"),
     "pq_score": ("src/repro_torch/kernels/csrc/pq_score.cu",
                  "src/repro/kernels/pq_score.py:63", "kernel check"),
+    "simhash_scalar_columns": ("src/repro_torch/kernels/csrc/buckets.cu",
+                               "none (XLA: src/repro/core/buckets.py)",
+                               "main"),
+    "minhash_columns": ("src/repro_torch/kernels/csrc/buckets.cu",
+                        "none (XLA: src/repro/core/buckets.py)",
+                        "multimodal"),
 }
 
 

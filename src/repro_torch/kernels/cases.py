@@ -1,9 +1,9 @@
 """Inputs that hold each kernel against its plain version: seeded numpy
 arrays at a given shape (the rescore step's, feature rows for the pair
-score), plus the fused shortlist's edge cases (those of
-``tests/test_kernels_fused.py``) and the top-k selection's.
-``tests/test_torch_kernels_cuda.py`` and ``chip_smoke.py`` both draw from
-here, so the cases live in one place.
+score, the bucket columns' projections, sets and scalars), plus the
+fused shortlist's edge cases (those of ``tests/test_kernels_fused.py``)
+and the top-k selection's. The card tests (``tests/test_torch_*_cuda.py``)
+and ``chip_smoke.py`` both draw from here, so the cases live in one place.
 """
 from __future__ import annotations
 
@@ -153,6 +153,44 @@ def feature_rows(rng, spec, rows: int) -> dict:
         out[f"scalar:{name}"] = rng.integers(1990, 2021, rows).astype(
             np.float32)
     return out
+
+
+def bucket_inputs(rng, spec, cfg, rows: int) -> dict:
+    """The bucket-column kernels' inputs (``kernels/buckets.py``), each
+    list in sorted mode order: ``projections`` f32 [dense_tables, rows,
+    dense_bits] with exact +0.0 and -0.0 entries; ``sets`` i32 [rows, cap]
+    over the whole int32 range and from a pool of 40, with rows all
+    ``PAD_ITEM``, rows half padded, PAD mixed in and the int32 limits;
+    ``scalars`` f32 [rows], negative and fractional, with bin edges and
+    signed zeros every fifth row."""
+    projections = []
+    for _ in sorted(spec.dense):
+        p = rng.standard_normal((cfg.dense_tables, rows, cfg.dense_bits),
+                                dtype=np.float32)
+        p[rng.random(p.shape) < 0.05] = 0.0
+        p[rng.random(p.shape) < 0.05] = -0.0
+        projections.append(p)
+    sets = []
+    for name in sorted(spec.sets):
+        cap = spec.sets[name]
+        items = rng.integers(-2 ** 31, 2 ** 31, (rows, cap), dtype=np.int64)
+        items[::3] = rng.integers(0, 40, (len(items[::3]), cap))
+        limits = rng.random((rows, cap))
+        items[limits < 0.02] = np.iinfo(np.int32).min
+        items[limits > 0.98] = np.iinfo(np.int32).max
+        items[rng.random((rows, cap)) < 0.3] = PAD_ITEM
+        items[5::7] = PAD_ITEM
+        items[3::7, : cap // 2] = PAD_ITEM
+        sets.append(items.astype(np.int32))
+    edges = np.asarray([-3.75, -2.0, -0.0, 0.0, 0.25, 4.0, -1e-30, 6.0],
+                       np.float32)
+    scalars = []
+    for _ in sorted(spec.scalars):
+        x = (rng.standard_normal(rows, dtype=np.float32) * 40).astype(
+            np.float32)
+        x[::5] = rng.choice(edges, len(x[::5]))
+        scalars.append(x)
+    return dict(projections=projections, sets=sets, scalars=scalars)
 
 
 def scorer_inputs(rng, b: int, f: int, h: int) -> list:

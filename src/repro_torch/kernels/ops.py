@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import buckets as _bk
 from repro_torch.kernels import fused_query as _fq
 from repro_torch.kernels import pq_score as _pq
 from repro_torch.kernels import scorer_mlp as _mlp
@@ -28,7 +29,9 @@ KERNELS = {"fused_query": _fq.fused_query_kernel,
            "pair_score": _mlp.pair_score,
            "topk_select": _tk.topk_select,
            "pq_score_batched": _pq.pq_score_batched,
-           "pq_score": _pq.pq_score}
+           "pq_score": _pq.pq_score,
+           "simhash_scalar_columns": _bk.simhash_scalar_columns,
+           "minhash_columns": _bk.minhash_columns}
 
 quantize_lut = _fq.quantize_lut
 PairLayout = _mlp.PairLayout

@@ -73,20 +73,22 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    Android-Security time-to-flag (``benchmarks/torch_time_to_flag.py``)
    on the card, ratio >= 2.0;
 5. hold every kernel against its plain PyTorch version on the card at the
-   shapes the paths reached, plus edge cases (fused_query, its int8
-   instance, topk_select, both pq_score forms, both sparse_dot forms and
-   sparse_rescore_topk bitwise, the signs of zeros included; scorer_mlp
-   within rtol/atol 1e-6, pair_score within rtol 1e-5 / atol 1e-6), and
-   time kernel, plain
+   shapes the paths reached (fused_query, its int8 instance, topk_select,
+   both pq_score forms, both sparse_dot forms and sparse_rescore_topk
+   bitwise, the signs of zeros included; scorer_mlp within rtol/atol
+   1e-6, pair_score within rtol 1e-5 / atol 1e-6), and time kernel, plain
    version and, for the top-k, ``torch.topk`` with CUDA events, plus each
    kernel's device time per call from ``torch.profiler`` (the mean over
-   the profiled calls whose device records came back whole; fused_query,
+   the profiled calls whose device records came back whole), each beside
+   its bound from ``gusbench/harness/peaks.py`` (fused_query,
    sparse_rescore_topk and pair_score also at the graph's shapes and the
    products-multimodal RPC's; the top-k above k = 64 against the stable
    sort, with the route ``ops.topk_select`` takes there; the bucket
    columns, ``simhash_scalar_columns`` on arxiv's schema and
    ``minhash_columns`` on products', bitwise against their plain versions
-   on the card at 16, 1,024 and 1,469,417 rows, and timed). Phase 5m
+   on the card at 16, 1,024 and 1,469,417 rows, and timed). A kernel's
+   fixed edge, split and long-k cases are its card tests'
+   (``tests/test_torch_*_cuda.py``), not this phase's. Phase 5m
    records the shape of every two-stage retrieval and brute search it
    makes, and phase 5 checks sparse_dot_batched, pair_score, the masked
    sparse_dot and topk_select at each of them; phase 6 records the shape
@@ -196,9 +198,7 @@ phases 2-4 and 6 must not launch the standalone ``sparse_dot_batched`` or
 ``sparse_dot_batched`` itself
 and must not launch ``scorer_mlp``. ``scorer_mlp`` and ``pq_score``
 (shared codes) have no caller on a path, so their launches are counted
-around one call each in phase 5. Phase 5 also holds the top-k sizes past
-the split's old limits (k > 4,096 on long rows, shortlists over 8,192,
-the fused shortlist at k = 4,097) bitwise against the plain versions.
+around one call each in phase 5.
 
 It imports nothing of JAX and nothing of the reference package.
 """
@@ -220,8 +220,11 @@ from pathlib import Path
 import numpy as np
 
 SRC = Path(__file__).resolve().parent / "src"
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
-F32_OPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
+# the benchmark's yardstick (peaks and the fused shortlist's work), imported
+# as gusbench/run.py imports it
+sys.path.insert(0, str(SRC.parent / "gusbench"))
+from harness import peaks  # noqa: E402
+
 WARMUP, REPS = 3, 20
 WINDOWS = 5                      # profiler windows a device time may take
 
@@ -320,10 +323,13 @@ def _timed(torch, kernel, plain, **extra) -> dict:
                 plain_ms=_time_ms(plain, torch), **extra)
 
 
-def _bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def _bound(n_bytes: float, n_ops: float) -> dict:
+    """``bound_ms`` from ``peaks.bound_s`` and ``bound_by``, the one of
+    bytes and operations that sets it."""
+    bound_s = peaks.bound_s(n_bytes, n_ops)
+    by_bytes = bound_s == n_bytes / peaks.peak(None)["bytes_per_s"]
+    return dict(bound_ms=bound_s * 1e3,
+                bound_by="bytes" if by_bytes else "operations")
 
 
 def _bitwise(torch, got, want) -> bool:
@@ -340,21 +346,52 @@ def _max_abs_err(got, want) -> float:
 
 # ---------------------------------------------------------------- phase 5
 
-def _fq_row(torch, args, k: int, err: float) -> dict:
-    """The f32 fused shortlist's report row on ``args`` (``FQ_ORDER``):
-    kernel, device and plain times beside its bound."""
-    from repro_torch.kernels import fused_query
+def _check_fq(torch, args, k: int, int8: bool, where: str):
+    """The fused shortlist on ``args`` (``FQ_ORDER``; the int8 instance on
+    the table quantised on the card, as the shortlist does) against its
+    plain version, bitwise. Returns (got, want)."""
+    from repro_torch.kernels import fused_query, ops
+    if int8:
+        table = ops.quantize_lut(args[0])
+        got = fused_query.fused_query_kernel_int8(*table, *args[1:], k)
+        want = fused_query.fused_query_int8_plain(*table, *args[1:], k)
+    else:
+        got = fused_query.fused_query_kernel(*args, k)
+        want = fused_query.fused_query_plain(*args, k)
+    torch.cuda.synchronize()
+    b, n, m = args[1].shape
+    shape = f"B={b} N={n} M={m} C={args[0].shape[2]} k={k} int8={int8}"
+    if not _bitwise(torch, got, want):
+        raise AssertionError(f"fused_query differs from its plain version "
+                             f"at the {where} shape {shape}")
+    print(f"[kernels] fused_query {where} {shape}: bitwise equal")
+    return got, want
+
+
+def _fq_row(torch, args, k: int, err: float, int8: bool = False) -> dict:
+    """The fused shortlist's report row on ``args`` (``FQ_ORDER``):
+    kernel, device and plain times beside its bound, from the benchmark's
+    ``peaks.fused_query_work``."""
+    from repro_torch.kernels import fused_query, ops
     b, n, m = args[1].shape
     c = args[0].shape[2]
-    # lut f32, per candidate: m code bytes, i32 id, bool valid, f32 bias;
-    # out: f32 + i32 per selected entry
-    bound, by = _bound_ms(b * m * c * 4 + b * n * (m + 4 + 1 + 4) + b * k * 8,
-                          b * n * (m + 1) + b * n)
+    n_bytes, n_ops = peaks.fused_query_work(b, n, m, c, k)
+    if int8:
+        # the int8 table (a byte an entry, an f32 scale a sub-space) in
+        # place of the f32 one, and one multiply an entry to dequantise it
+        n_bytes += b * m * (4 - 3 * c)
+        n_ops += b * m * c
+        table = ops.quantize_lut(args[0])
+        kernel = fused_query.fused_query_kernel_int8
+        plain = fused_query.fused_query_int8_plain
+    else:
+        table = args[:1]
+        kernel = fused_query.fused_query_kernel
+        plain = fused_query.fused_query_plain
     return dict(shape=f"B={b} N={n} M={m} C={c} k={k}", max_abs_err=err,
-                **_timed(torch,
-                         lambda: fused_query.fused_query_kernel(*args, k),
-                         lambda: fused_query.fused_query_plain(*args, k)),
-                bound_ms=bound, bound_by=by)
+                **_timed(torch, lambda: kernel(*table, *args[1:], k),
+                         lambda: plain(*table, *args[1:], k)),
+                **_bound(n_bytes, n_ops))
 
 
 def _check_rescore(torch, rng, on_card, b, n, r, cap, kdim, k, unit):
@@ -387,30 +424,27 @@ def _rescore_row(torch, args, got, want, k) -> dict:
     r = args[3].shape[1]
     short_slots = torch.gather(args[2], 1, args[3].long())
     live = int((torch.isfinite(args[4]) & (short_slots >= 0)).sum())
-    bound, by = _bound_ms(b * kdim * 8 + b * r * 8 + b * r * 4
-                          + live * kdim * 8 + b * k * 8,
-                          live * kdim * kdim + b * r)
     return dict(
         shape=f"B={b} N={args[2].shape[1]} r={r} K={kdim} k={k} "
               f"cap={args[5].shape[0]}",
         max_abs_err=_max_abs_err(got[1], want[1]),
         **_timed(torch, lambda: ops.sparse_rescore_topk(*args, k),
                  lambda: sparse_dot.sparse_rescore_topk_plain(*args, k)),
-        bound_ms=bound, bound_by=by)
+        **_bound(b * kdim * 8 + b * r * 8 + b * r * 4 + live * kdim * 8
+                 + b * k * 8, live * kdim * kdim + b * r))
 
 
 def check_kernels(torch, dev, shapes: dict) -> dict:
-    """Phase 5: every kernel against its plain version on the card, at the
-    paths' shapes (``shapes``); the fused shortlist (both instances) also
-    at its edge cases and the cases that cross its split into chunks, the
-    f32 one at B=256 and at a 65,536-candidate slab, the top-k selection
-    at its edge and split cases, in both of the reference's orders, and
-    the kernels of the multi-modal phase at every shape it recorded (the
-    inputs come from ``repro_torch.kernels.cases``, shared with the card
-    tests)."""
+    """Phase 5: every kernel against its plain version on the card at the
+    paths' shapes (``shapes``), each timed beside its bound (the rows of
+    the kernel table), then the kernels of phases 5m, 6 and 6s at every
+    shape they recorded. The inputs come from
+    ``repro_torch.kernels.cases``; a kernel's fixed edge, split and long-k
+    cases are its card tests' (``tests/test_torch_kernels_cuda.py``,
+    ``tests/test_torch_buckets_cuda.py``)."""
     from repro_torch.core.scorer import pair_layout
-    from repro_torch.kernels import (cases, fused_query, ops, pq_score,
-                                     scorer_mlp, sparse_dot, topk_select)
+    from repro_torch.kernels import (cases, ops, pq_score, scorer_mlp,
+                                     sparse_dot, topk_select)
     from repro_torch.kernels.ref import DENSE, SET
 
     def on_card(arrays):
@@ -420,33 +454,17 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
     report = {}
 
     # fused_query: the main path's 16 queries x nprobe * slab candidates,
-    # k = reorder, and 256 queries (graph seeding, the repair drain); a
-    # slab of 65,536 (16 chunks), the edge cases and the split cases
-    # (chunks of one slab); bitwise everywhere
-    b, n, k = shapes["fq_b"], shapes["fq_n"], shapes["reorder"]
-    fq_cases = [("main", cases.fused_query_inputs(rng, b, n, 8, 256, n // 2,
-                                                  0.1), k),
-                ("B=256", cases.fused_query_inputs(rng, 256, n, 8, 256,
-                                                   n // 2, 0.1), k),
-                ("long slab", cases.fused_query_inputs(rng, 4, 65536, 8, 256,
-                                                       30000, 0.1), 128)]
-    split = cases.fused_query_split_cases(rng, topk_select.CHUNK)
-    fq_args = {}
-    for name, inputs, k in fq_cases + cases.fused_query_edge_cases(rng) \
-            + split:
+    # k = reorder, through both tables, and 256 queries (graph seeding,
+    # the repair drain); bitwise
+    n, k = shapes["fq_n"], shapes["reorder"]
+    for name, b, int8 in (("fused_query", shapes["fq_b"], False),
+                          ("fused_query_int8", shapes["fq_b"], True),
+                          ("fused_query B=256", 256, False)):
+        inputs = cases.fused_query_inputs(rng, b, n, 8, 256, n // 2, 0.1)
         args = on_card([inputs[a] for a in cases.FQ_ORDER])
-        got = fused_query.fused_query_kernel(*args, k)
-        want = fused_query.fused_query_plain(*args, k)
-        torch.cuda.synchronize()
-        if not _bitwise(torch, got, want):
-            raise AssertionError(f"fused_query differs from its plain "
-                                 f"version ({name})")
-        print(f"[kernels] fused_query {name}: bitwise equal")
-        fq_args[name] = (args, k, _max_abs_err(got[0], want[0]))
-    for name in ("main", "B=256"):
-        report["fused_query" if name == "main" else
-               f"fused_query {name}"] = _fq_row(torch, *fq_args[name])
-    main_k = fq_args["main"][1]
+        got, want = _check_fq(torch, args, k, int8, "main")
+        report[name] = _fq_row(torch, args, k, _max_abs_err(got[0], want[0]),
+                               int8)
 
     # sparse_dot (both forms), bitwise at unit and IDF-like weights (the
     # plain version sums in the kernels' order). A sparse entry is a u32
@@ -454,8 +472,7 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
     # holds indices in int64 and the kernels read their low words).
     # sparse_dot_batched at the multi-modal path's shape (16 queries x
     # r_max candidates of K = 14) and at the rescore's (which the index
-    # path runs fused, as sparse_rescore_topk). The shared form also runs
-    # its edge cases (cases.sparse_dot_cases)
+    # path runs fused, as sparse_rescore_topk)
     kd = shapes["k_dims"]
     mm_b, mm_r, mm_k = shapes["mm"]
     forms = {"sparse_dot_batched": (
@@ -480,23 +497,14 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
             print(f"[kernels] {name} unit={unit}: bitwise equal")
         b, kq = q_shape
         rows = int(np.prod(db_shape[:-1]))         # db rows read once
-        bound, by = _bound_ms(b * kq * 8 + rows * kd * 8 + got.numel() * 4,
-                              got.numel() * kq * kd)
         report[name] = dict(
             shape=f"q={q_shape} db={db_shape}",
             max_abs_err=_max_abs_err(got, want),
             **_timed(torch, lambda: fn(*args),
                      lambda: sparse_dot.sparse_dot_plain(*args)),
-            bound_ms=bound, bound_by=by, launches=launches)
-    for name, arrays in cases.sparse_dot_cases(rng):
-        args = [None if a is None else torch.as_tensor(a).to(dev)
-                for a in arrays]
-        got = sparse_dot.sparse_dot(*args)
-        want = sparse_dot.sparse_dot_plain(*args)
-        torch.cuda.synchronize()
-        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-            raise AssertionError(f"sparse_dot differs ({name})")
-        print(f"[kernels] sparse_dot {name}: bitwise equal")
+            **_bound(b * kq * 8 + rows * kd * 8 + got.numel() * 4,
+                     got.numel() * kq * kd),
+            launches=launches)
 
     # every shape the multi-modal phase gave: sparse_dot_batched at each
     # two-stage retrieval's (rows, r_max, K) (its pair_score below), and
@@ -554,132 +562,28 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
             res = check_rescore(b, n, r, cap, kdim, k, unit)
         report[name] = rescore_row(*res, k)
 
-    # Part A: past the split's old limits. Sparse_rescore_topk on
-    # shortlists of 8,193 and 16,384 (the keys route: a [B, r] scratch,
-    # then the split top-k) at the main path's B, slab and capacity over
-    # N = 32,768, k = 5,000 (pairwise merge) and k = scann_nn + 1 (halving
-    # merge; timed); bitwise
-    part_a = {}
-    for r in (8193, 16384):
-        for k in (5000, shapes["rescore"][1]):
-            res = check_rescore(shapes["fq_b"], 32768, r, shapes["capacity"],
-                                kd, k, True)
-        part_a[f"sparse_rescore_topk r={r}"] = rescore_row(*res, k)
-
-    # fused_query_int8: the same cases through the int8 table (quantised on
-    # the card, as the shortlist does); bitwise everywhere
-    for name, inputs, k in [fq_cases[0]] + cases.fused_query_edge_cases(rng) \
-            + split:
-        args = on_card([inputs[a] for a in cases.FQ_ORDER])
-        table = ops.quantize_lut(args[0])
-        got = fused_query.fused_query_kernel_int8(*table, *args[1:], k)
-        want = fused_query.fused_query_int8_plain(*table, *args[1:], k)
-        torch.cuda.synchronize()
-        if not _bitwise(torch, got, want):
-            raise AssertionError(f"fused_query_int8 differs from its plain "
-                                 f"version ({name})")
-        print(f"[kernels] fused_query_int8 {name}: bitwise equal")
-        if name == "main":
-            int8_args, err = (*table, *args[1:]), _max_abs_err(got[0],
-                                                               want[0])
-    b, n, m = int8_args[2].shape
-    c = int8_args[0].shape[2]
-    bound, by = _bound_ms(
-        b * m * c * 1 + b * m * 4 + b * n * (m + 4 + 1 + 4) + b * main_k * 8,
-        b * m * c + b * n * (m + 1) + b * n)
-    report["fused_query_int8"] = dict(
-        shape=f"B={b} N={n} M={m} C={c} k={main_k}", max_abs_err=err,
-        **_timed(torch, lambda: fused_query.fused_query_kernel_int8(
-            *int8_args, main_k), lambda: fused_query.fused_query_int8_plain(
-            *int8_args, main_k)),
-        bound_ms=bound, bound_by=by)
 
     # topk_select through ops.topk_select (the reference's order for each
-    # k): the graph's merge and read shapes plus edge cases and the split
-    # cases, bitwise with signed zeros; torch.topk timed beside it as the
-    # library call (its order at ties is not promised lowest-index-first,
-    # so it is no substitute)
-    b, n, k = shapes["topk_merge"]
-    topk_cases = [("merge", cases.topk_inputs(rng, b, n), k),
-                  ("read", cases.topk_inputs(rng, *shapes["topk_read"][:2]),
-                   shapes["topk_read"][2])] + cases.topk_edge_cases(rng) \
-        + cases.topk_split_cases(topk_select.CHUNK)
-    for name, scores, k in topk_cases:
-        scores = torch.as_tensor(scores).to(dev)
+    # k) at the graph's merge and read shapes, bitwise with signed zeros;
+    # torch.topk timed beside it as the library call (its order at ties is
+    # not promised lowest-index-first, so it is no substitute)
+    for name in ("merge", "read"):
+        b, n, k = shapes[f"topk_{name}"]
+        scores = torch.as_tensor(cases.topk_inputs(rng, b, n)).to(dev)
         got = ops.topk_select(scores, k)
         want = topk_select.topk_select_plain(scores, k, signed_zeros=k > 64)
         torch.cuda.synchronize()
         if not _bitwise(torch, got, want):
             raise AssertionError(f"topk_select differs from its plain "
                                  f"version ({name})")
-        print(f"[kernels] topk_select {name} {tuple(scores.shape)} k={k}: "
-              f"bitwise equal")
-        if name in ("merge", "read"):
-            b, n = scores.shape
-            bound, by = _bound_ms(b * n * 4 + b * k * 8, b * n)
-            report[f"topk_select {name}"] = dict(
-                shape=f"B={b} N={n} k={k}",
-                max_abs_err=_max_abs_err(got[0], want[0]),
-                **_timed(torch, lambda: ops.topk_select(scores, k),
-                         lambda: topk_select.topk_select_plain(scores, k)),
-                library_ms=_time_ms(lambda: torch.topk(scores, k), torch),
-                bound_ms=bound, bound_by=by)
-
-    # Part A: k past half a chunk on long rows (the pairwise merge), in
-    # both signed-zero orders, bitwise (cases.topk_long_k_cases); the
-    # first two timed in lax.top_k's order beside torch.topk; then the
-    # fused shortlist at k = 4,097 over 32,768 candidates (its pairwise
-    # merge and dedup kernel), both tables
-    for name, scores, k in cases.topk_long_k_cases(rng):
-        scores = torch.as_tensor(scores).to(dev)
-        for signed in (False, True):
-            got = topk_select.topk_select(scores, k, signed_zeros=signed)
-            want = topk_select.topk_select_plain(scores, k,
-                                                 signed_zeros=signed)
-            torch.cuda.synchronize()
-            if not _bitwise(torch, got, want):
-                raise AssertionError(f"topk_select differs from its plain "
-                                     f"version ({name}, signed={signed})")
-        print(f"[kernels] topk_select {name}: bitwise equal in both orders")
-        if name in ("B=4 N=32768 k=4097", "B=2 N=131072 k=16384"):
-            b, n = scores.shape
-            bound, by = _bound_ms(b * n * 4 + b * k * 8, b * n)
-            part_a[f"topk_select {name}"] = dict(
-                shape=name, max_abs_err=_max_abs_err(got[0], want[0]),
-                **_timed(torch, lambda: topk_select.topk_select(
-                    scores, k, signed_zeros=True),
-                    lambda: topk_select.topk_select_plain(
-                        scores, k, signed_zeros=True)),
-                library_ms=_time_ms(lambda: torch.topk(scores, k), torch),
-                bound_ms=bound, bound_by=by)
-    inputs = cases.fused_query_inputs(rng, shapes["fq_b"], 32768, 8, 256,
-                                      16384, 0.1)
-    args = on_card([inputs[a] for a in cases.FQ_ORDER])
-    k = 4097
-    for int8 in (False, True):
-        table = ops.quantize_lut(args[0]) if int8 else (args[0],)
-        kernel, plain = ((fused_query.fused_query_kernel_int8,
-                          fused_query.fused_query_int8_plain) if int8 else
-                         (fused_query.fused_query_kernel,
-                          fused_query.fused_query_plain))
-        got = kernel(*table, *args[1:], k)
-        want = plain(*table, *args[1:], k)
-        torch.cuda.synchronize()
-        if not _bitwise(torch, got, want):
-            raise AssertionError(f"fused_query (int8={int8}) differs from "
-                                 f"its plain version at k = {k}")
-        print(f"[kernels] fused_query int8={int8} N=32768 k={k}: bitwise "
-              f"equal")
-    b, n, m = args[1].shape
-    bound, by = _bound_ms(b * m * 256 * 4 + b * n * (m + 4 + 1 + 4)
-                          + b * k * 8, b * n * (m + 1) + b * n)
-    part_a[f"fused_query k={k}"] = dict(
-        shape=f"B={b} N={n} M={m} C=256 k={k}",
-        max_abs_err=_max_abs_err(got[0], want[0]),
-        **_timed(torch, lambda: fused_query.fused_query_kernel(*args, k),
-                 lambda: fused_query.fused_query_plain(*args, k)),
-        bound_ms=bound, bound_by=by)
-    print("[kernels] part A: " + json.dumps(part_a))
+        print(f"[kernels] topk_select {name} {(b, n)} k={k}: bitwise equal")
+        report[f"topk_select {name}"] = dict(
+            shape=f"B={b} N={n} k={k}",
+            max_abs_err=_max_abs_err(got[0], want[0]),
+            **_timed(torch, lambda: ops.topk_select(scores, k),
+                     lambda: topk_select.topk_select_plain(scores, k)),
+            library_ms=_time_ms(lambda: torch.topk(scores, k), torch),
+            **_bound(b * n * 4 + b * k * 8, b * n))
 
     # above k = 64 the reference runs lax.top_k; ops.topk_select runs the
     # kernel in that order, timed against the plain stable sort at the
@@ -699,9 +603,8 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
         if not _bitwise(torch, got, want):
             raise AssertionError(f"topk_select differs from its plain "
                                  f"version above k = 64 ({name})")
-        bound, by = _bound_ms(b * n * 4 + b * k * 8, b * n)
         above[name] = dict(
-            shape=f"B={b} N={n} k={k}", bound_ms=bound, bound_by=by,
+            shape=f"B={b} N={n} k={k}", **_bound(b * n * 4 + b * k * 8, b * n),
             device_ms=_device_profile(lambda: topk_select.topk_select(
                 scores, k, signed_zeros=True), torch)[0],
             kernel_ms=_time_ms(lambda: topk_select.topk_select(
@@ -713,8 +616,7 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
           "(stable sort): " + json.dumps(above))
 
     # pq_score_batched (the fused=False shortlist's shape) and pq_score
-    # (shared codes), bitwise, then every code-load path
-    # (cases.pq_score_cases)
+    # (shared codes), bitwise
     for name, fn, b, n in (("pq_score_batched", pq_score.pq_score_batched,
                             shapes["fq_b"], shapes["fq_n"]),
                            ("pq_score", pq_score.pq_score, 16, 131072)):
@@ -737,29 +639,13 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
             raise AssertionError(f"{name} differs from its plain version")
         print(f"[kernels] {name} B={b} N={n}: bitwise equal")
         m, c = lut.shape[1], lut.shape[2]
-        bound, by = _bound_ms(b * m * c * 4 + codes.numel() + b * n * 4,
-                              b * n * m)
         report[name] = dict(
             shape=f"B={b} N={n} M={m} C={c}",
             max_abs_err=_max_abs_err(got, want),
             **_timed(torch, lambda: fn(lut, codes),
                      lambda: pq_score.pq_score_plain(lut, codes)),
-            bound_ms=bound, bound_by=by, launches=launches)
-    for name, lut, codes, shared in cases.pq_score_cases(rng):
-        lut, codes = torch.as_tensor(lut).to(dev), torch.as_tensor(codes)
-        if name == "offset view":            # one byte off its buffer
-            buf = torch.empty(codes.numel() + 1, dtype=torch.uint8,
-                              device=dev)
-            buf[1:].copy_(codes.flatten())
-            codes = buf[1:].view(codes.shape)
-        codes = codes.to(dev)
-        fn = pq_score.pq_score if shared else pq_score.pq_score_batched
-        got = fn(lut, codes)
-        want = pq_score.pq_score_plain(lut, codes)
-        torch.cuda.synchronize()
-        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-            raise AssertionError(f"pq_score differs ({name})")
-        print(f"[kernels] pq_score {name}: bitwise equal")
+            **_bound(b * m * c * 4 + codes.numel() + b * n * 4, b * n * m),
+            launches=launches)
 
     # scorer_mlp: 16 queries x 10 neighbors of arxiv pair features (no
     # path calls it: pair_score scores the pairs; launches counted here)
@@ -774,13 +660,13 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
     print(f"[kernels] scorer_mlp B={b} F={f} H={h}: max_abs_err "
           f"{_max_abs_err(got, want)!r}")
     n_w = f * h + h * h + 3 * h + 1
-    bound, by = _bound_ms(b * f * 4 + n_w * 4 + b * 4,
-                          b * (2 * f * h + 2 * h * h + 2 * h + 3 * h + 4))
     report["scorer_mlp"] = dict(
         shape=f"B={b} F={f} H={h}", max_abs_err=_max_abs_err(got, want),
         **_timed(torch, lambda: scorer_mlp.scorer_mlp(*args),
                  lambda: scorer_mlp.scorer_mlp_plain(*args)),
-        bound_ms=bound, bound_by=by, launches=launches)
+        **_bound(b * f * 4 + n_w * 4 + b * 4,
+                 b * (2 * f * h + 2 * h * h + 2 * h + 3 * h + 4)),
+        launches=launches)
 
     # pair_score: the pair features and the MLP of the main path's 16
     # queries x 10 neighbors, of a graph seeding chunk (256 x probe 16)
@@ -809,10 +695,6 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
         f = layout.n_features
         per_pair = sum(9 * d if kind == DENSE else d * d if kind == SET
                        else 2 for kind, d in zip(layout.kinds, layout.dims))
-        bound, by = _bound_ms(
-            (p // group + p) * row_bytes + 4 * sum(w.numel() for w in weights)
-            + p * 4,
-            p * (per_pair + 2 * f * h + 2 * h * h + 2 * h + 3 * h + 4))
         return dict(
             shape=f"P={p} group={group} dims={layout.dims} F={f} H={h}",
             max_abs_err=_max_abs_err(got, want),
@@ -820,7 +702,10 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
                                                           *weights),
                      lambda: scorer_mlp.pair_score_plain(q, c, layout, group,
                                                          *weights)),
-            bound_ms=bound, bound_by=by)
+            **_bound((p // group + p) * row_bytes
+                     + 4 * sum(w.numel() for w in weights) + p * 4,
+                     p * (per_pair + 2 * f * h + 2 * h * h + 2 * h + 3 * h
+                          + 4)))
 
     for name, spec, (p, group) in (
             ("pair_score", shapes["spec"], shapes["pair"]),
@@ -885,14 +770,13 @@ def check_buckets(torch, dev, rows=BUCKET_ROWS) -> dict:
                     + len(spec.scalars) * len(cfg.scalar_widths))
             read = sum(t.numel() * t.element_size() for group in args
                        for t in group)
-            bound, by = _bound_ms(read + b * cols * 9, 0)
             key = name if b == rows[0] else f"{name} B={b}"
             report[key] = dict(
                 shape=f"B={b} columns={cols}",
                 max_abs_err=0.0,
                 **_timed(torch, lambda: kernel(*args, spec, cfg, *outs[0]),
                          lambda: plain(*args, spec, cfg, *outs[1])),
-                bound_ms=bound, bound_by=by, launches=launches)
+                **_bound(read + b * cols * 9, 0), launches=launches)
             print(f"[kernels] {key}: " + json.dumps(report[key]))
     return report
 
@@ -908,27 +792,14 @@ def check_serving_shapes(torch, rng, on_card, shapes: dict, check_rescore,
     pair_score (rtol 1e-5, atol 1e-6). ``check_rescore`` and
     ``check_pairs`` are ``check_kernels``' own checks."""
     from repro_torch.core.scorer import pair_layout
-    from repro_torch.kernels import cases, fused_query, ops, topk_select
+    from repro_torch.kernels import cases, ops, topk_select
 
     calls = shapes["serve_calls"]
     for b, n, m, c, k, int8 in sorted(calls["fq"]):
         inputs = cases.fused_query_inputs(rng, b, n, m, c, max(n // 2, 1),
                                           0.1)
         args = on_card([inputs[a] for a in cases.FQ_ORDER])
-        if int8:
-            table = ops.quantize_lut(args[0])
-            got = fused_query.fused_query_kernel_int8(*table, *args[1:], k)
-            want = fused_query.fused_query_int8_plain(*table, *args[1:], k)
-        else:
-            got = fused_query.fused_query_kernel(*args, k)
-            want = fused_query.fused_query_plain(*args, k)
-        torch.cuda.synchronize()
-        if not _bitwise(torch, got, want):
-            raise AssertionError(f"fused_query differs from its plain "
-                                 f"version at the serving phase's B={b} "
-                                 f"N={n} M={m} C={c} k={k} int8={int8}")
-        print(f"[kernels] fused_query serve B={b} N={n} M={m} C={c} k={k} "
-              f"int8={int8}: bitwise equal")
+        _check_fq(torch, args, k, int8, "serving phase's")
     for b, n, r, cap, kq, kd, k in sorted(calls["rescore"]):
         if kq != kd:
             raise AssertionError(f"the serving phase's rescore had Kq={kq} "
@@ -1918,28 +1789,14 @@ def check_sharded_shapes(torch, rng, on_card, shapes: dict, check_rescore,
     order); bitwise but for pair_score (rtol 1e-5, atol 1e-6). The
     16-query RPC's shapes are timed: the report's ``sharded`` rows."""
     from repro_torch.core.scorer import pair_layout
-    from repro_torch.kernels import (cases, fused_query, ops, pq_score,
-                                     topk_select)
+    from repro_torch.kernels import cases, pq_score, topk_select
 
     calls = shapes["sharded_calls"]
     report = {}
     for b, n, m, c, k, int8 in sorted(calls["fq"]):
         inputs = cases.fused_query_inputs(rng, b, n, m, c, n // 2, 0.1)
         args = on_card([inputs[a] for a in cases.FQ_ORDER])
-        table = ops.quantize_lut(args[0]) if int8 else (args[0],)
-        kernel, plain = ((fused_query.fused_query_kernel_int8,
-                          fused_query.fused_query_int8_plain) if int8 else
-                         (fused_query.fused_query_kernel,
-                          fused_query.fused_query_plain))
-        got = kernel(*table, *args[1:], k)
-        want = plain(*table, *args[1:], k)
-        torch.cuda.synchronize()
-        if not _bitwise(torch, got, want):
-            raise AssertionError(f"fused_query differs from its plain "
-                                 f"version at the sharded phase's B={b} "
-                                 f"N={n} k={k} int8={int8}")
-        print(f"[kernels] fused_query sharded B={b} N={n} M={m} C={c} "
-              f"k={k} int8={int8}: bitwise equal")
+        got, want = _check_fq(torch, args, k, int8, "sharded phase's")
         if b == 16 and not int8:
             report["fused_query sharded"] = _fq_row(
                 torch, args, k, _max_abs_err(got[0], want[0]))
@@ -2067,7 +1924,7 @@ def check_dryrun_shapes(torch, dev, calls: dict) -> dict:
     k = 100, slab rows 131,072 on the 16x16 mesh and 65,536 on the
     2x16x16) bitwise against their plain versions, each timed beside its
     bound: the ``dryrun`` rows."""
-    from repro_torch.kernels import cases, fused_query
+    from repro_torch.kernels import cases
 
     def on_card(arrays):
         return [torch.as_tensor(a).to(dev) for a in arrays]
@@ -2081,15 +1938,7 @@ def check_dryrun_shapes(torch, dev, calls: dict) -> dict:
         inputs = cases.fused_query_inputs(rng, b, n, m, c, n // 2, 0.1)
         args = on_card([inputs[a] for a in cases.FQ_ORDER])
         del inputs
-        got = fused_query.fused_query_kernel(*args, k)
-        want = fused_query.fused_query_plain(*args, k)
-        torch.cuda.synchronize()
-        if not _bitwise(torch, got, want):
-            raise AssertionError(f"fused_query differs from its plain "
-                                 f"version at the dry-run's B={b} N={n} "
-                                 f"M={m} k={k}")
-        print(f"[kernels] fused_query dryrun B={b} N={n} M={m} C={c} k={k}: "
-              f"bitwise equal")
+        got, want = _check_fq(torch, args, k, False, "dry-run's")
         report["fused_query dryrun"] = _fq_row(torch, args, k,
                                                _max_abs_err(got[0], want[0]))
         del args, got, want
@@ -2430,7 +2279,8 @@ def _lm_estimate(cfg, n_params: int, size: dict) -> dict:
     peak_a = 2 * n_params + cache + 2 * v * b * p + max(
         long + flash, 2 * long + 4 * 2 * long, long + full)
     peak_b = 4 * n_params + 2 * v * b * p + 4 * 4 * v * b * p
-    step_s = max(2 * n_params / HBM_BYTES_PER_S, 3200 * 17e-6)
+    step_s = max(2 * n_params / peaks.peak(None)["bytes_per_s"],
+                 3200 * 17e-6)
     steps = 2 * (p + size["new"]) + size["exact"][1]
     return dict(peak_a_gb=peak_a / 1e9, peak_b_gb=peak_b / 1e9,
                 seconds=steps * step_s + 30.0)
@@ -2591,7 +2441,8 @@ def run_lm_path(torch, dev, cfg=None, **size) -> dict:
         prefill_bound_ms=2 * mm_params * b * p / BF16_OPS_PER_S * 1e3,
         long_prefill_bound_ms=(2 * mm_params * size["long"] / BF16_OPS_PER_S
                                * 1e3),
-        decode_bound_ms=(weights_gb + cache_gb) * 1e9 / HBM_BYTES_PER_S * 1e3,
+        decode_bound_ms=((weights_gb + cache_gb) * 1e9
+                         / peaks.peak(None)["bytes_per_s"] * 1e3),
         decode_p50_ms=p50, decode_p99_ms=float(np.percentile(step_ms, 99)),
         decode_tok_s=b / (p50 / 1e3), decode_steps=len(step_ms),
         decode_device_ms=decode_prof["device_ms"],
@@ -2758,7 +2609,7 @@ def family_plan(cfg, size: dict = FAMILY_SIZE) -> dict:
     return dict(params=n_params, weights_gb=weights / 1e9,
                 cache_gb=cache_bytes / 1e9, state_gb=state_bytes / 1e9,
                 decode_bound_ms=(weights + cache_bytes + state_bytes)
-                / HBM_BYTES_PER_S * 1e3,
+                / peaks.peak(None)["bytes_per_s"] * 1e3,
                 prefill_bound_ms=prefill_flops / BF16_OPS_PER_S * 1e3,
                 capacity=cap, peak_a_gb=peak_a / 1e9, peak_b_gb=peak_b / 1e9)
 
@@ -3108,13 +2959,13 @@ def train_plan(cfg, size: dict = TRAIN_SIZE) -> dict:
     tokens = size["batch"] * size["seq"]
     products_s = 8 * n * tokens / BF16_OPS_PER_S
     opt_bytes = 2 * pb + pb + 2 * mb      # params r/w, grads r, m and v r/w
+    opt_s = opt_bytes / peaks.peak(None)["bytes_per_s"]
     return dict(params=n, params_gb=pb / 1e9, grads_gb=pb / 1e9,
                 moments_gb=mb / 1e9, kept_gb=kept / 1e9, layer_gb=layer / 1e9,
                 ce_gb=ce / 1e9, opt_gb=opt / 1e9,
                 peak_gb=(2 * pb + mb + kept + layer + ce + opt) / 1e9,
                 products_s=products_s, opt_bytes_gb=opt_bytes / 1e9,
-                opt_s=opt_bytes / HBM_BYTES_PER_S,
-                bound_s=products_s + opt_bytes / HBM_BYTES_PER_S)
+                opt_s=opt_s, bound_s=products_s + opt_s)
 
 
 def _sliced_update_check(torch, leaf) -> dict:

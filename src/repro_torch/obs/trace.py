@@ -44,7 +44,10 @@ serving plane is single-threaded, so one slot serves it. The stages, under
                                 dense id table served the lookup
       embed.batch (rows)
         embed.to_device (bytes)
-        embed.buckets           LSH and the int64-emulated hashing
+        embed.buckets           the SimHash einsum and the bucket-column
+                                launches (kernels/buckets.py)
+          embed.minhash (tables, cap)
+                                a schema with a set mode only
         embed.weights           IDF, filter, dedup and its sorts
       index.search (rows, k)
         index.sketch

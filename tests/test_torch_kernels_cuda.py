@@ -41,15 +41,17 @@ def _fq_check(case, k, dev):
     return got
 
 
-@pytest.mark.parametrize("n,k", [(8192, 128), (16384, 128), (65536, 128),
-                                 (300, 300), (1000, 1)])
-def test_fused_query_matches_plain_bitwise(card, n, k):
-    """B=16, M=8, C=256 as on the main path: N = nprobe x the offline
+@pytest.mark.parametrize("b,n,k", [(16, 8192, 128), (16, 16384, 128),
+                                   (16, 65536, 128), (16, 300, 300),
+                                   (16, 1000, 1), (256, 32768, 128)])
+def test_fused_query_matches_plain_bitwise(card, b, n, k):
+    """M=8, C=256 as on the main path: B=16 at N = nprobe x the offline
     slab (8 x 1,024), a doubled slab (the arxiv run of chip_smoke.py
     reaches N = 32,768), 16 chunks merged in one block, k = N and k = 1
-    (rows of one chunk)."""
+    (rows of one chunk); B=256 (graph seeding, the repair drain) at the
+    main path's N = 32,768."""
     rng = np.random.default_rng(n + k)
-    _fq_check(cases.fused_query_inputs(rng, 16, n, 8, 256, max(2, n // 3),
+    _fq_check(cases.fused_query_inputs(rng, b, n, 8, 256, max(2, n // 3),
                                        0.3), k, card)
 
 

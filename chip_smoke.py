@@ -86,7 +86,9 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    sort, with the route ``ops.topk_select`` takes there; the bucket
    columns, ``simhash_scalar_columns`` on arxiv's schema and
    ``minhash_columns`` on products', bitwise against their plain versions
-   on the card at 16, 1,024 and 1,469,417 rows, and timed). A kernel's
+   on the card at 16, 1,024 and 1,469,417 rows, and timed; the index's
+   ``count_sketch`` at d_proj 64 the same way at 16 rows of 9 and of 14
+   columns, 1,024 of 9 and 1,469,417 of 14). A kernel's
    fixed edge, split and long-k cases are its card tests'
    (``tests/test_torch_*_cuda.py``), not this phase's. Phase 5m
    records the shape of every two-stage retrieval and brute search it
@@ -441,7 +443,8 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
     shape they recorded. The inputs come from
     ``repro_torch.kernels.cases``; a kernel's fixed edge, split and long-k
     cases are its card tests' (``tests/test_torch_kernels_cuda.py``,
-    ``tests/test_torch_buckets_cuda.py``)."""
+    ``tests/test_torch_buckets_cuda.py``,
+    ``tests/test_torch_sketch_cuda.py``)."""
     from repro_torch.core.scorer import pair_layout
     from repro_torch.kernels import (cases, ops, pq_score, scorer_mlp,
                                      sparse_dot, topk_select)
@@ -719,6 +722,7 @@ def check_kernels(torch, dev, shapes: dict) -> dict:
     report.update(check_sharded_shapes(torch, rng, on_card, shapes,
                                        check_rescore, rescore_row, pair_row))
     report.update(check_buckets(torch, dev))
+    report.update(check_sketch(torch, dev))
     return report
 
 
@@ -778,6 +782,45 @@ def check_buckets(torch, dev, rows=BUCKET_ROWS) -> dict:
                          lambda: plain(*args, spec, cfg, *outs[1])),
                 **_bound(read + b * cols * 9, 0), launches=launches)
             print(f"[kernels] {key}: " + json.dumps(report[key]))
+    return report
+
+
+# the CountSketch's (rows, columns): an RPC's 16 ids at arxiv's 9 and
+# products' 14 sparse columns, a bulk RPC's 1,024 and the products
+# bootstrap's 1,469,417 rows; d_proj is the cells'
+SKETCH_SHAPES = ((16, 9), (16, 14), (1024, 9), (1_469_417, 14))
+
+
+def check_sketch(torch, dev, shapes=SKETCH_SHAPES, d_proj=64) -> dict:
+    """Phase 5's CountSketch: ``count_sketch`` at each (rows, columns) of
+    ``shapes``, bitwise (sign bits compared) against its plain version
+    run on the card (the int64-emulated hashing and column loop the
+    kernel replaced), timed beside it, with launches per call; bytes
+    counted once (12 read a column, 4 * d_proj written a row)."""
+    from repro_torch.kernels import cases, sketch
+
+    rng = np.random.default_rng(6)
+    report = {}
+    for b, k in shapes:
+        idx, val = (torch.as_tensor(a).to(dev)
+                    for a in cases.sketch_inputs(rng, b, k))
+        before = sketch.count_sketch.launches
+        got = sketch.count_sketch(idx, val, d_proj, 7)
+        launches = sketch.count_sketch.launches - before
+        want = sketch.count_sketch_plain(idx, val, d_proj, 7)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"count_sketch differs from its plain "
+                                 f"version at B={b} K={k}")
+        print(f"[kernels] count_sketch B={b} K={k}: bitwise equal")
+        key = ("count_sketch" if (b, k) == shapes[0]
+               else f"count_sketch B={b} K={k}")
+        report[key] = dict(
+            shape=f"B={b} K={k} d_proj={d_proj}", max_abs_err=0.0,
+            **_timed(torch, lambda: sketch.count_sketch(idx, val, d_proj, 7),
+                     lambda: sketch.count_sketch_plain(idx, val, d_proj, 7)),
+            **_bound(b * k * 12 + b * d_proj * 4, 0), launches=launches)
+        print(f"[kernels] {key}: " + json.dumps(report[key]))
     return report
 
 
@@ -994,7 +1037,7 @@ def run_main_path(torch, n_points: int, dev) -> tuple[dict, dict]:
     profile_rpcs(torch, gus, stream)
     _require_launched(counts, ("fused_query", "sparse_rescore_topk",
                                "sparse_dot", "topk_select", "pair_score",
-                               "simhash_scalar_columns"),
+                               "simhash_scalar_columns", "count_sketch"),
                       "the main path")
     if not same_rate > 0.7:
         raise AssertionError(f"same-cluster rate {same_rate} <= 0.7")
@@ -2148,7 +2191,8 @@ def run_multimodal_path(torch, n_points: int, dev) -> tuple[dict, dict]:
     _require_launched(counts, ("sparse_dot_batched", "pair_score",
                                "fused_query", "sparse_rescore_topk",
                                "sparse_dot", "topk_select",
-                               "simhash_scalar_columns", "minhash_columns"),
+                               "simhash_scalar_columns", "minhash_columns",
+                               "count_sketch"),
                       "the multi-modal path", forbidden=("scorer_mlp",))
     if not flag["ratio"] >= torch_time_to_flag.RATIO_GATE:
         raise AssertionError(f"time-to-flag ratio {flag['ratio']} < "
@@ -3544,6 +3588,8 @@ SOURCES = {  # kernel -> (CUDA source, TPU kernel it replaces, path)
     "minhash_columns": ("src/repro_torch/kernels/csrc/buckets.cu",
                         "none (XLA: src/repro/core/buckets.py)",
                         "multimodal"),
+    "count_sketch": ("src/repro_torch/kernels/csrc/sketch.cu",
+                     "none (XLA: src/repro/ann/sparse.py)", "main"),
 }
 
 

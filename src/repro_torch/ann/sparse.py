@@ -6,15 +6,15 @@
   shared-db ``sparse_dot`` kernel on the card, its plain version on the
   CPU);
 * ``count_sketch`` — the feature-hashing projection into a d_proj-dim
-  dense space, used by the partitioner and the PQ codebooks.
+  dense space, used by the partitioner and the PQ codebooks (through the
+  ``count_sketch`` kernel on the card, its plain version on the CPU).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import hashing
 from repro_torch.core.types import PAD_INDEX, SparseBatch
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, sketch
 
 
 def sparse_dot_pair(qi, qv, di, dv) -> torch.Tensor:
@@ -38,17 +38,8 @@ def sparse_dot_many_many(q: SparseBatch, db: SparseBatch) -> torch.Tensor:
 def count_sketch(sp: SparseBatch, d_proj: int, seed: int = 7) -> torch.Tensor:
     """CountSketch projection to a dense d_proj space, f32 [B, d_proj].
 
-    The reference's scatter-add is replayed as a loop over the K columns:
-    within one column every row writes one coordinate, so there are no
-    colliding writes (no atomics on the card), and each coordinate sums
-    its terms in column order, bitwise the reference's order.
+    Each coordinate sums its terms in column order, bitwise the
+    reference's scatter-add: one launch of the ``count_sketch`` kernel on
+    the card, its plain column loop on the CPU (``kernels/sketch.py``).
     """
-    h = hashing.uhash(seed, sp.indices) % d_proj
-    s = torch.where((hashing.uhash(seed + 1, sp.indices) & 1) == 1, 1.0, -1.0)
-    vals = torch.where(sp.indices == PAD_INDEX, 0.0, sp.values * s)
-    out = torch.zeros((sp.batch, d_proj), dtype=torch.float32,
-                      device=sp.values.device)
-    rows = torch.arange(sp.batch, device=sp.values.device)
-    for k in range(sp.k):
-        out[rows, h[:, k]] += vals[:, k]
-    return out
+    return sketch.count_sketch(sp.indices, sp.values, d_proj, seed)

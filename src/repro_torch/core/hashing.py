@@ -7,12 +7,13 @@ split into 16-bit halves so no int64 product can overflow, which keeps the
 low 32 bits exact on every device. Results are bitwise those of the
 reference.
 
-Who runs it: on the CPU the plain version of the bucket columns
-(``kernels/buckets.py``, called by ``core/buckets.py``); on the card those
-columns come from the CUDA kernels of ``kernels/csrc/buckets.cu``, which
-compute the same functions in native uint32. ``count_sketch``
-(``ann/sparse.py``) and the sharded backend's routing still call these
-functions on every device.
+Who runs it: on the CPU the plain versions of the bucket columns
+(``kernels/buckets.py``, called by ``core/buckets.py``) and of the
+CountSketch (``kernels/sketch.py``, called by ``ann/sparse.py``); on the
+card those come from the CUDA kernels of ``kernels/csrc/buckets.cu`` and
+``kernels/csrc/sketch.cu``, which compute the same functions in native
+uint32 (``csrc/hash.cuh``). The sharded backend's routing still calls
+these functions on every device.
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
 """Inputs that hold each kernel against its plain version: seeded numpy
 arrays at a given shape (the rescore step's, feature rows for the pair
-score, the bucket columns' projections, sets and scalars), plus the
-fused shortlist's edge cases (those of ``tests/test_kernels_fused.py``)
-and the top-k selection's. The card tests (``tests/test_torch_*_cuda.py``)
+score, the bucket columns' projections, sets and scalars, the
+CountSketch's sparse rows), plus the fused shortlist's edge cases (those
+of ``tests/test_kernels_fused.py``), the top-k selection's and the
+CountSketch's. The card tests (``tests/test_torch_*_cuda.py``)
 and ``chip_smoke.py`` both draw from here, so the cases live in one place.
 """
 from __future__ import annotations
@@ -191,6 +192,50 @@ def bucket_inputs(rng, spec, cfg, rows: int) -> dict:
         x[::5] = rng.choice(edges, len(x[::5]))
         scalars.append(x)
     return dict(projections=projections, sets=sets, scalars=scalars)
+
+
+def sketch_inputs(rng, rows: int, k: int) -> tuple:
+    """The CountSketch's inputs (``kernels/sketch.py``): indices int64
+    [rows, k] of uint32 values over the whole range, a third of the rows
+    from a pool of 40 (repeats in a row add twice to one coordinate),
+    ``PAD_INDEX`` at a fifth of the slots and in every seventh row
+    throughout; values float32 [rows, k], normal, with exact +0.0 and
+    -0.0 at live slots and 0.0, -0.0 or NaN at the padding."""
+    idx = rng.integers(0, 2 ** 32 - 1, (rows, k), dtype=np.int64)
+    idx[::3] = rng.integers(0, 40, (len(idx[::3]), k))
+    idx[rng.random((rows, k)) < 0.2] = PAD_INDEX
+    idx[5::7] = PAD_INDEX
+    val = rng.standard_normal((rows, k), dtype=np.float32)
+    val[rng.random((rows, k)) < 0.03] = 0.0
+    val[rng.random((rows, k)) < 0.03] = -0.0
+    pad = idx == PAD_INDEX
+    val[pad] = rng.choice(np.asarray([0.0, -0.0, np.nan], np.float32),
+                          int(pad.sum()))
+    return idx, val
+
+
+def sketch_edge_cases() -> list:
+    """(name, indices, values) that pin the CountSketch's summation:
+    ``order``, one index repeated along each row with values whose sum
+    depends on the order they are added in (column order gives 0.0, the
+    reverse 1.0); ``cancel``, pairs of one index with v and -v, which sum
+    to +0.0 and never -0.0; ``pad``, -0.0 and NaN values at padding and
+    -0.0 at live slots; ``empty``, no rows."""
+    big = np.float32(2 ** 25)
+    order = np.tile(np.asarray([[1.0, big, -big]], np.float32), (4, 1))
+    cancel = np.tile(np.asarray([[1.5, -1.5, -0.0, 0.0, 3.0, -3.0]],
+                                np.float32), (3, 1))
+    pad_idx = np.asarray([[3, PAD_INDEX, PAD_INDEX, 9],
+                          [PAD_INDEX] * 4], np.int64)
+    pad_val = np.asarray([[-0.0, np.nan, -0.0, -0.0],
+                          [np.nan, -0.0, np.nan, 0.0]], np.float32)
+    return [("order", np.asarray([[11] * 3, [7] * 3, [2 ** 32 - 2] * 3,
+                                  [0] * 3], np.int64), order),
+            ("cancel", np.asarray([[5, 5, 6, 6, 2 ** 31, 2 ** 31]] * 3,
+                                  np.int64), cancel),
+            ("pad", pad_idx, pad_val),
+            ("empty", np.zeros((0, 9), np.int64), np.zeros((0, 9),
+                                                             np.float32))]
 
 
 def scorer_inputs(rng, b: int, f: int, h: int) -> list:

@@ -32,6 +32,7 @@
 // SimHash column) and 9 bytes written per column; the hashing is a few
 // dozen integer operations per column. Indices are 64-bit and the loops
 // grid-stride, so any row count runs on a capped grid.
+#include "hash.cuh"     // hashing::fmix32, hashing::kGolden
 #include "select.cuh"   // sel::on_device, sel::kMaxDevices
 
 #include <cstdint>
@@ -43,7 +44,8 @@ constexpr long long kMaxBlocks = 8192;
 constexpr int kMaxModes = 16;       // modes of one kind a launch takes
 constexpr int kTableChunk = 8;      // MinHash tables a pass over a row's items
 constexpr int kPadItem = -1;
-constexpr uint32_t kGolden = 0x9E3779B9u;
+using hashing::fmix32;
+using hashing::kGolden;
 
 // The arrays of one kind of mode: dense projections f32 [T, B, bits]
 // (strides table, row, bit), set items i32 [B, cap] (strides row, item;
@@ -54,15 +56,6 @@ struct Modes {
   int width[kMaxModes];
   int n;
 };
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
 
 __device__ __forceinline__ uint32_t combine(uint32_t h, uint32_t v) {
   return fmix32(h ^ (v + kGolden + (h << 6) + (h >> 2)));

@@ -16,6 +16,7 @@ from repro_torch.kernels import buckets as _bk
 from repro_torch.kernels import fused_query as _fq
 from repro_torch.kernels import pq_score as _pq
 from repro_torch.kernels import scorer_mlp as _mlp
+from repro_torch.kernels import sketch as _sk
 from repro_torch.kernels import sparse_dot as _sd
 from repro_torch.kernels import topk_select as _tk
 from repro_torch.kernels.ref import shortlist_dedup_ref
@@ -31,7 +32,8 @@ KERNELS = {"fused_query": _fq.fused_query_kernel,
            "pq_score_batched": _pq.pq_score_batched,
            "pq_score": _pq.pq_score,
            "simhash_scalar_columns": _bk.simhash_scalar_columns,
-           "minhash_columns": _bk.minhash_columns}
+           "minhash_columns": _bk.minhash_columns,
+           "count_sketch": _sk.count_sketch}
 
 quantize_lut = _fq.quantize_lut
 PairLayout = _mlp.PairLayout
